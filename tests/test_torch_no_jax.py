@@ -1,0 +1,50 @@
+"""The port imports no JAX: the machine that runs it on the GPU has none.
+
+A fresh interpreter imports gpras_tpu_torch, serves a tiny exact-GP
+checkpoint on the CPU through every module of the serving slice, and checks
+that neither ``jax`` nor ``gpras_tpu`` was imported along the way."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+SCRIPT = r"""
+import sys, tempfile, pathlib
+import numpy as np, torch
+torch.set_num_threads(1)
+import gpras_tpu_torch
+from gpras_tpu_torch import GPRAS, PreProcessor, PosteriorPredictor
+
+rng = np.random.default_rng(0)
+field = 5.0 + rng.normal(size=(40, 30)) @ np.diag(np.linspace(1, 2, 30))
+elev = np.zeros(30)
+out = pathlib.Path(tempfile.mkdtemp())
+for name, k in (("lf", 3), ("hf", 2)):
+    pre = PreProcessor(hydraulic_parameter="wse")
+    pre.fit(field, elev, spatial_mode_count=k)
+    pre.to_file(out / f"{name}.npz")
+model = GPRAS("RBF", model_type="exact", exact_engine="cg", dtype=torch.float64)
+model.x = torch.as_tensor(rng.normal(size=(50, 3)))
+model.y = torch.as_tensor(rng.normal(size=(50, 2)))
+model.params = {"log_variance": torch.zeros(2, dtype=torch.float64),
+                "log_lengthscales": torch.zeros(2, 3, dtype=torch.float64),
+                "log_noise_variance": torch.full((2,), -2.0, dtype=torch.float64)}
+model.to_file(out / "gp.npz")
+pred = PosteriorPredictor(out / "gp.npz", out / "hf.npz", out / "lf.npz", buckets=(8,))
+f, v = pred.predict_field(field[:5])
+assert f.shape == v.shape == (5, 30) and np.isfinite(f).all() and (v >= 0).all()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpras_tpu"))
+assert not bad, bad
+print("NO_JAX_OK")
+"""
+
+
+def test_port_runs_without_importing_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_JAX_OK" in proc.stdout
