@@ -1,26 +1,37 @@
 #!/usr/bin/env python3
 """Chip smoke test of the PyTorch + CUDA port (gpras_tpu_torch) on one GPU.
 
-Drives the exact-GP serving path once at full width (N = 49,152 training
-points, D = 8 inputs, Matern52, P = 4 EOF modes, 49,152-cell fields) through
-the entry points a user calls, and checks every CUDA kernel on that path:
+Drives the exact-GP serving path and the exact-GP training path once each at
+full width (N = 49,152 training points, D = 8 inputs, Matern52, P = 4 EOF
+modes, 49,152-cell fields) through the entry points a user calls, and checks
+every CUDA kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
 2. kernels vs their plain PyTorch versions (float64 on the same float32
    inputs), for all five stationary covariances, at ragged shapes and at the
-   serving shapes, with kernel and plain times
+   shapes the paths give them, with kernel, plain and bound times: the Gram
+   (B1), the covariance matvecs (B2, B3), the gradient contraction (B4, B5)
 3. serving: write a checkpoint and two EOF preprocessors with the port, load
    them in PosteriorPredictor(device="cuda"), answer two LF-field requests,
-   and show through the launch counters that both kernels ran
-4. check: the served posterior of mode 0 against the dense float64 exact
-   posterior (Cholesky of the full 49,152^2 Gram) on the card
+   and show through the launch counters that B2 and B3 ran
+4. serving check: the served posterior of mode 0 against the dense float64
+   exact posterior (Cholesky of the full 49,152^2 Gram) on the card
+5. training: GPRAS(...).fit on the same data, warm-started from a 2,048-point
+   rung, then Adam steps on the full-N Hutchinson loss per mode (B1 forward,
+   cuSOLVER Cholesky, B5 backward); the launch counters show B1 and B5 ran
+6. training checks: mode 0's full-N loss at its certified start against the
+   float64 dense NLML minus log prior, and B5 at that point against the
+   float64 plain contraction with the same probes; a breakdown of one full-N
+   step
+7. a 2-step Hutchinson fit at N = 3,072, the path on which B4 runs
 
-Hyperparameters are fixed, not fitted (training is not ported yet), at
-values where the serving solver converges; see training_set. Artifacts go to build/chip_smoke/ in the checkout.
-Prints progress, then a JSON line describing the kernels, then as the last
-line {"ok": true, "device": {...}}. Any failed phase exits non-zero without
-that line; without a CUDA device it exits 2 at once.
+Serving uses fixed hyperparameters at values where the serving solver
+converges (see training_set); the training phase fits its own. Artifacts go
+to build/chip_smoke/ in the checkout. Prints progress, then JSON lines
+describing the runs and the kernels, then as the last line {"ok": true,
+"device": {...}}. Any failed phase exits non-zero without that line; without
+a CUDA device it exits 2 at once.
 
 Run from the repository root: python3 chip_smoke.py
 """
@@ -41,9 +52,16 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 N, D, P = 49_152, 8, 4
 GRID = (192, 256)  # 49,152 cells
+M = 16             # Hutchinson probes (the reference's default)
 KERNEL_TOL = 1e-4  # |kernel - plain_f64| <= 1e-4 * max|plain_f64| (see phase 2)
 MEAN_TOL = 1e-3    # served mean vs dense f64: 1e-3 * max|mean|
 VAR_TOL = 1e-2     # served variance vs dense f64: relative
+LOSS_TOL = 1e-5    # full-N float32 training loss vs dense f64: relative (see phase 6)
+# the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
+# tensor cores, and HBM3 bandwidth; the bound of a kernel is the larger of
+# its operations and its bytes over these
+FP32_FLOPS = 67e12
+HBM_BYTES_S = 3.35e12
 
 
 def log(msg: str) -> None:
@@ -89,18 +107,67 @@ def phase_build():
     _build.library()
     regs = sorted({int(line.split("Used ")[1].split()[0])
                    for line in compiler_log.splitlines() if "registers" in line})
-    spills = [line for line in compiler_log.splitlines()
-              if "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line]
+    # ptxas names each function, then reports its stack frame and spills
+    spills, fn = [], None
+    for line in compiler_log.splitlines():
+        if "Function properties for" in line:
+            fn = line.split("Function properties for")[1].strip()
+        elif "spill" in line and "0 bytes spill stores, 0 bytes spill loads" not in line:
+            spills.append(f"{fn}: {line.strip()}")
     log(f"[build] {path.name} in {time.perf_counter() - t0:.1f} s (set-up); "
         f"registers per thread {regs}; spilling kernels: {len(spills)}")
+    for line in spills:
+        log(f"[build]   {line}")
+
+
+def bound(flops: float, nbytes: float) -> tuple[float, str]:
+    """(least time in ms, what binds it) for work of ``flops`` fp32
+    operations that must move ``nbytes`` (inputs read once, outputs written
+    once)."""
+    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+# fp32 operations per covariance entry: the D-wide dot or difference sum,
+# r2, and the Matern52 tail (sqrt, exp and ~8 multiply-adds)
+def entry_ops() -> int:
+    return 2 * D + 12
+
+
+def gram_work(n1: int, n2: int) -> tuple[float, float]:
+    return n1 * n2 * entry_ops(), 4.0 * (n1 * n2 + (n1 + n2) * D)
+
+
+def kmv_work(n1: int, n2: int, r: int, sym: bool) -> tuple[float, float]:
+    tiles = n1 * n2 / 2 if sym else n1 * n2  # symmetric: each entry built once
+    return 2.0 * n1 * n2 * r + tiles * entry_ops(), 4.0 * ((n1 + n2) * D + n2 * r + n1 * r)
+
+
+def kgrad_work(n: int) -> tuple[float, float]:
+    """The function's work, whichever body computes it (B4 and B5 compute the
+    same sum). dK is symmetric, so r2 (3D), the lengthscale weights (3D), f
+    and f' (~12) and the variance and weight products (~7) are needed once
+    per pair i <= j, n(n+1)/2 pairs, with the folded cotangent
+    Kbar_ij + Kbar_ji (two rank-m dots, 4m) on each."""
+    return n * (n + 1) / 2 * (6 * D + 4 * M + 19), 4.0 * n * (D + 2 * M + 1)
+
+
+def flat(out):
+    """A kernel result as one tensor (kgrad returns a dict)."""
+    import torch
+
+    if isinstance(out, dict):
+        return torch.cat([out["log_variance"].reshape(1), out["log_lengthscales"]])
+    return out
 
 
 def phase_kernels():
     """Each kernel against its plain version, run in float64 on the same
-    float32 inputs. The kernels' own error is fp32 rounding of the tile and
-    of sums over up to 49,152 terms, ~1e-6 of the result's scale; the gate
+    float32 inputs. The kernels' own error is fp32 rounding of the entries
+    and of sums over up to 49,152 terms (B2, B3) or of 1.2e9 terms taken in
+    float64 per tile (B4, B5), ~1e-6 of the result's scale; the gate
     1e-4 * max|want| catches any wrong tile, mask or mirror (those move a
-    result by a whole covariance entry times v, ~1e-2 of the scale)."""
+    result by whole tiles of entries, ~1e-2 of the scale)."""
     import torch
 
     from gpras_tpu_torch.ops import fused_gram
@@ -119,19 +186,28 @@ def phase_kernels():
         v = torch.randn(n2, r, generator=gen).to(dev)
         return params, x1, x2, v
 
-    def check(name, kernel, shape, run, run_plain, run_plain32, timed):
+    def check(name, kernel, shape, run, want, run_plain32=None, work=None):
+        """``want``: the float64 plain result, or a function of the kernel's
+        result that returns (max error, scale)."""
         got = run()
-        want = run_plain()
-        torch.cuda.synchronize()
-        err = (got.double() - want).abs().max().item()
-        scale = want.abs().max().item()
+        if callable(want):
+            err, scale = want(got)
+        else:
+            torch.cuda.synchronize()
+            err = (flat(got).double() - flat(want)).abs().max().item()
+            scale = flat(want).abs().max().item()
+        del got
         ok = err <= KERNEL_TOL * scale
-        line = f"[kernels] {name:9s} {kernel:11s} {shape:22s} max_abs_err {err:.3e} " \
+        line = f"[kernels] {name:11s} {kernel:11s} {shape:22s} max_abs_err {err:.3e} " \
                f"(scale {scale:.3e}) {'ok' if ok else 'FAIL'}"
-        if timed:
+        if run_plain32 is not None:
             ms, plain_ms = cuda_ms(run), cuda_ms(run_plain32)
-            line += f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms"
-            report.setdefault(name, {})[(kernel, shape)] = (err, ms, plain_ms)
+            bound_ms, bound_by = bound(*work)
+            line += f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  " \
+                    f"bound {bound_ms:.3f} ms ({bound_by})"
+            report.setdefault(name, {})[(kernel, shape)] = {
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by}
         log(line)
         if not ok:
             raise AssertionError(f"{name} {kernel} {shape}: error {err} > {KERNEL_TOL} * {scale}")
@@ -139,28 +215,69 @@ def phase_kernels():
     def f64(params):
         return {k: v.double() for k, v in params.items()}
 
+    def gram_error(kernel, params, x1, x2, noise, got, panel=2048):
+        """max |got - plain_f64| over row panels: no 19 GB float64 Gram."""
+        err = scale = 0.0
+        for r0 in range(0, x1.shape[0], panel):
+            want = K.gram(kernel, params, x1[r0:r0 + panel], x1 if x2 is None else x2)
+            if noise is not None:
+                idx = torch.arange(want.shape[0], device=want.device)
+                want[idx, r0 + idx] += noise
+            err = max(err, (got[r0:r0 + panel].double() - want).abs().max().item())
+            scale = max(scale, want.abs().max().item())
+        return err, scale
+
     for kernel in K.STATIONARY_KERNELS:
-        # serving shapes: the posterior mean of a 64- or 256-query bucket
+        # B1: ragged cross and square, and the training Gram K + noise I
+        for n1, n2 in [(4999, 3001), (5003, None), (N, None)]:
+            params, x1, x2, _ = inputs(n1, n2 or n1, 1)
+            x2 = None if n2 is None else x2
+            nz = None if n2 else torch.tensor(1e-2, device=dev)
+            check("gram", kernel, f"{n1}x{n2 or n1}" + ("" if n2 else " +noise"),
+                  lambda: fused_gram.gram(kernel, params, x1, x2, noise=nz),
+                  lambda got: gram_error(kernel, f64(params), x1.double(),
+                                         None if x2 is None else x2.double(),
+                                         None if n2 else 1e-2, got),
+                  lambda: fused_gram.gram_plain(kernel, params, x1, x2, noise=nz),
+                  gram_work(n1, n2 or n1))
+        # B2, at the serving shapes: the posterior mean of a 64- or 256-query bucket
         for (n1, n2, r, timed) in [(4999, 3001, 1, False), (4999, 3001, 7, False),
                                    (64, N, 1, True), (256, N, 1, True)]:
             params, x1, x2, v = inputs(n1, n2, r)
             check("kmv_dense", kernel, f"{n1}x{n2} R={r}",
                   lambda: fused_gram.kmv_dense(kernel, params, x1, v, x2=x2),
-                  lambda: fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(),
-                                               x2=x2.double()),
-                  lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2), timed)
-        # serving shapes: the alpha solve (R = 1) and the variance solves of a
-        # 64- and a 256-query bucket; R picks the kernel's build (1, 4 or 16
-        # columns per thread), so each build runs here at the shape it serves
+                  fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(),
+                                       x2=x2.double()),
+                  (lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2)) if timed else None,
+                  kmv_work(n1, n2, r, False))
+        # B3, at the serving shapes: the alpha solve (R = 1) and the variance
+        # solves of a 64- and a 256-query bucket; R picks the kernel's build
+        # (1, 4 or 16 columns per thread), so each build runs at the shape it serves
         for (n, r, timed) in [(5003, 1, False), (5003, 7, False), (N, 1, True), (N, 64, True),
                               (N, 256, True)]:
             params, x, _, v = inputs(n, n, r)
             noise = torch.tensor(1e-2, device=dev)
             check("kmv_sym", kernel, f"{n}x{n} R={r}",
                   lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
-                  lambda: fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(),
-                                               noise=1e-2),
-                  lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise), timed)
+                  fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
+                  (lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise))
+                  if timed else None,
+                  kmv_work(n, n, r, True))
+        # B4 (the Hutchinson backward up to 3,584 points; 3,072 is phase 7's
+        # path) and B5 (above it; 49,152 is the training path), m = 16 probes
+        for n, sym in [(3001, False), (3072, False), (3584, False), (5003, True), (N, True)]:
+            params, x, _, _ = inputs(n, n, 1)
+            w = torch.randn(n, M, generator=gen).to(dev)
+            z = (2 * torch.randint(0, 2, (n, M), generator=gen) - 1).float().to(dev)
+            alpha = torch.randn(n, generator=gen).to(dev)
+            fn = fused_gram.kgrad_sym if sym else fused_gram.kgrad_dense
+            check(fn.__name__, kernel, f"N={n} m={M}",
+                  lambda: fn(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+                  fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(),
+                                         z.double(), alpha.double(), 1.3, 1.0 / M),
+                  lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+                  kgrad_work(n))
+        torch.cuda.empty_cache()
     return report
 
 
@@ -184,8 +301,8 @@ def training_set():
     """bench._make_data_hard's recipe (seed 7) for mode 0, plus three seeded
     smooth responses of the same three active inputs.
 
-    Per-mode Matern52 hyperparameters are fixed, not fitted (training is not
-    ported): lengthscales 3-6 on the active inputs, 10 on the nuisance ones,
+    The per-mode Matern52 hyperparameters that serving uses are fixed:
+    lengthscales 3-6 on the active inputs, 10 on the nuisance ones,
     noise variance 0.1. They are chosen so that the reference's serving
     solver (64 preconditioned CG iterations, rank-64 pivoted-Cholesky
     preconditioner) converges at N = 49,152; they are not the data's
@@ -230,12 +347,11 @@ def phase_serving(out: Path):
     model.params = {k: torch.as_tensor(v, device=DEVICE) for k, v in params.items()}
     model.to_file(out / "gp.npz")
     log(f"[serving] checkpoint N={N} D={D} P={P} Matern52, hyperparameters fixed where the "
-        "64-iteration PCG solver converges (not fitted: training is not ported yet)")
+        "64-iteration PCG solver converges")
     requests = [synthetic_fields(np.random.default_rng(12 + i), n)[0]
                 for i, n in enumerate((17, 200))]
 
-    fused_gram.kmv_dense.launches = 0
-    fused_gram.kmv_sym.launches = 0
+    zero_counters()
     t0 = time.perf_counter()
     pred = PosteriorPredictor(out / "gp.npz", hf_preprocessor_path=out / "hf_pre.npz",
                               lf_preprocessor_path=out / "lf_pre.npz", buckets=(64, 256),
@@ -309,6 +425,217 @@ def phase_dense_check(pred, request):
     return mean_err, var_err
 
 
+def counters():
+    from gpras_tpu_torch.ops import fused_gram
+
+    return {"gram": fused_gram.gram, "kmv_dense": fused_gram.kmv_dense,
+            "kmv_sym": fused_gram.kmv_sym, "kgrad_dense": fused_gram.kgrad_dense,
+            "kgrad_sym": fused_gram.kgrad_sym}
+
+
+def zero_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict[str, int]:
+    return {name: fn.launches for name, fn in counters().items()}
+
+
+def phase_training(x, y):
+    """GPRAS.fit at full width: the warm-start rung (2,048 points, dense
+    engine), one certifying full-N forward per mode, then Adam steps on the
+    full-N Hutchinson loss. Host-clock times of each full-N loss evaluation
+    come from a wrapper around the model's loss (synchronised before each)."""
+    import torch
+
+    from gpras_tpu_torch import GPRAS
+
+    model = GPRAS("Matern52", model_type="exact", device=DEVICE)
+    calls = []  # (mode index, gradient on, start time, parameters)
+    loss_fn = model._loss_fn
+
+    def timed_loss(p, y_i):
+        torch.cuda.synchronize()
+        mode = next(i for i in range(P) if model.y[:, i].data_ptr() == y_i.data_ptr())
+        calls.append((mode, torch.is_grad_enabled(), time.perf_counter(),
+                      {k: v.detach().clone() for k, v in p.items()}))
+        return loss_fn(p, y_i)
+
+    model._loss_fn = timed_loss
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model.fit(x, y, optimization_method="adam", learning_rate=0.02, max_iter=3,
+              warm_start_subsample=2048)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del model._loss_fn
+    ends = [c[2] for c in calls[1:]] + [t0 + fit_s]
+    info = model.warm_start_info
+    log(f"[training] fit of {P} modes at N={N} in {fit_s:.3f} s (warm rung 2,048 points, "
+        f"max_iter 3, lr 0.02); peak device memory {peak_gb:.2f} GB; "
+        f"launches {launches}")
+    per_mode = []
+    for i in range(P):
+        iters = int(model.fit_info["iterations"][i])
+        losses = model.fit_info["losses"][i][:iters].tolist()
+        steps = [end - c[2] for c, end in zip(calls, ends) if c[0] == i and c[1]]
+        rejected = sum(not math.isfinite(v) for v in losses)
+        per_mode.append({"ratio_cap": info["ratio_caps"][i], "cert_loss": info["cert_losses"][i],
+                         "fell_back": i in info["fell_back_modes"], "losses": losses,
+                         "final_loss": float(model.fit_info["loss"][i]), "rejected": rejected,
+                         "step_s": steps})
+        log(f"[training] mode {i}: warm start cap {info['ratio_caps'][i]}, cert loss "
+            f"{info['cert_losses'][i]:.6f}{' (fell back)' if per_mode[-1]['fell_back'] else ''}; "
+            f"losses {[f'{v:.6f}' for v in losses]}; final {per_mode[-1]['final_loss']:.6f}; "
+            f"rejected {rejected}; s per full-N step {[f'{t:.3f}' for t in steps]}")
+        if rejected or not math.isfinite(per_mode[-1]["final_loss"]) or len(steps) != iters:
+            raise AssertionError(f"mode {i}: non-finite losses or missing steps")
+    if not all(bool(torch.isfinite(v).all()) for v in model.params.values()):
+        raise AssertionError("non-finite fitted parameters")
+    if launches["gram"] == 0 or launches["kgrad_sym"] == 0:
+        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    start = next(c[3] for c in calls if c[0] == 0 and c[1])  # mode 0's certified start
+    return model, launches, {"fit_s": fit_s, "peak_gb": peak_gb, "modes": per_mode}, start
+
+
+def phase_training_check(model, start):
+    """Mode 0 at its certified start parameters: the float32 full-N loss the
+    fit took its first step from, against the float64 dense NLML minus log
+    prior of the same matrix (K + (noise + 1e-6 var) I), factored on the
+    card; and B5 on the path's W = K^-1 Z, Z and alpha against the float64
+    plain contraction."""
+    import torch
+
+    from gpras_tpu_torch.gp.priors import log_prior
+    from gpras_tpu_torch.ops import fused_gram
+    from gpras_tpu_torch.ops import kernels as K
+    from gpras_tpu_torch.ops import linalg
+
+    loss32 = float(model.fit_info["losses"][0][0])
+    p64 = {k: v.double() for k, v in start.items()}
+    x64, y64 = model.x.double(), model.y[:, 0].double()
+    t0 = time.perf_counter()
+    kmat = torch.empty((N, N), dtype=torch.float64, device=x64.device)
+    for r0 in range(0, N, 4096):
+        kmat[r0:r0 + 4096] = K.gram("Matern52", p64, x64[r0:r0 + 4096], x64)
+    noise64 = torch.exp(p64["log_noise_variance"]) + \
+        linalg.default_jitter(torch.float32) * torch.exp(p64["log_variance"])
+    kmat.diagonal().add_(noise64)
+    chol, info = torch.linalg.cholesky_ex(kmat)
+    del kmat
+    if int(info) != 0:
+        raise AssertionError(f"dense float64 Cholesky failed (info {int(info)})")
+    alpha64 = torch.cholesky_solve(y64[:, None], chol)[:, 0]
+    nlml = 0.5 * torch.dot(y64, alpha64) + linalg.logdet_from_chol(chol) / 2 \
+        + 0.5 * N * math.log(2.0 * math.pi)
+    prior = float(log_prior(p64))
+    loss64 = float(nlml) - prior
+    # what the gate must see: dropping the log prior moves the loss by
+    # |prior|; dropping the jitter j moves it by ~ j * d loss / d noise =
+    # j * (tr(K^-1) - alpha^T alpha) / 2, the trace from the path's probes
+    z64 = model._probes.double()
+    trace = float((z64 * torch.cholesky_solve(z64, chol)).sum()) / z64.shape[1]
+    jitter = linalg.default_jitter(torch.float32) * math.exp(float(p64["log_variance"]))
+    jitter_shift = abs(0.5 * jitter * (trace - float(torch.dot(alpha64, alpha64))))
+    del chol, alpha64, z64
+    torch.cuda.empty_cache()
+    loss_err = abs(loss32 - loss64) / abs(loss64)
+    log(f"[train-check] mode 0 full-N loss at the certified start: float32 {loss32:.6f}, "
+        f"float64 dense {loss64:.6f}, relative error {loss_err:.3e} (limit {LOSS_TOL}; "
+        f"{time.perf_counter() - t0:.1f} s); a dropped log prior would move it by "
+        f"{abs(prior) / abs(loss64):.3e}, a dropped jitter by ~{jitter_shift / abs(loss64):.3e}")
+
+    noise32 = torch.exp(start["log_noise_variance"]) + \
+        linalg.default_jitter(torch.float32) * torch.exp(start["log_variance"])
+    k32 = fused_gram.gram("Matern52", start, model.x, noise=noise32)
+    l32, info = torch.linalg.cholesky_ex(k32)
+    del k32
+    alpha = torch.cholesky_solve(model.y[:, :1], l32)[:, 0]
+    z = model._probes
+    w = torch.cholesky_solve(z, l32).contiguous()
+    del l32
+    got = flat(fused_gram.kgrad_sym("Matern52", start, model.x, w, z, alpha, 1.0, 1.0 / M))
+    want = flat(fused_gram.kgrad_plain("Matern52", p64, x64, w.double(), z.double(),
+                                       alpha.double(), 1.0, 1.0 / M))
+    grad_err = (got.double() - want).abs().max().item()
+    scale = want.abs().max().item()
+    log(f"[train-check] B5 at the certified start, the path's W, Z, alpha: max_abs_err "
+        f"{grad_err:.3e} (scale {scale:.3e}, limit {KERNEL_TOL} * scale)")
+    if not loss_err <= LOSS_TOL or not grad_err <= KERNEL_TOL * scale:
+        raise AssertionError("training loss or gradient disagrees with float64")
+    return {"loss32": loss32, "loss64": loss64, "loss_rel_err": loss_err,
+            "prior_rel": abs(prior) / abs(loss64), "jitter_rel": jitter_shift / abs(loss64),
+            "b5_max_abs_err": grad_err, "b5_scale": scale}
+
+
+def phase_step_breakdown(model):
+    """One full-N training step of mode 0 at its fitted parameters, piece by
+    piece (CUDA events), and whole through the model's loss (host clock)."""
+    import torch
+
+    from gpras_tpu_torch.fit.optimizers import value_and_grad
+    from gpras_tpu_torch.ops import fused_gram
+    from gpras_tpu_torch.ops import linalg
+
+    p = {k: v[0] for k, v in model.params.items()}
+    y, z = model.y[:, 0], model._probes
+    noise = torch.exp(p["log_noise_variance"]) + \
+        linalg.default_jitter(torch.float32) * torch.exp(p["log_variance"])
+    parts = {"B1 gram": cuda_ms(lambda: fused_gram.gram("Matern52", p, model.x, noise=noise))}
+    k = fused_gram.gram("Matern52", p, model.x, noise=noise)
+    parts["Cholesky (cholesky_ex)"] = cuda_ms(lambda: torch.linalg.cholesky_ex(k))
+    l, _ = torch.linalg.cholesky_ex(k)
+    del k
+    parts["solve alpha"] = cuda_ms(lambda: torch.cholesky_solve(y[:, None], l))
+    parts["solve W = K^-1 Z"] = cuda_ms(lambda: torch.cholesky_solve(z, l))
+    alpha = torch.cholesky_solve(y[:, None], l)[:, 0]
+    w = torch.cholesky_solve(z, l).contiguous()
+    del l
+    parts["B5 kgrad_sym"] = cuda_ms(
+        lambda: fused_gram.kgrad_sym("Matern52", p, model.x, w, z, alpha, 1.0, 1.0 / M))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    steps = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value_and_grad(lambda q: model._loss_fn(q, y), p)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    step_ms = min(steps) * 1e3
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rest = step_ms - sum(parts.values())
+    log(f"[step] one full-N step (value and gradient, host clock): {step_ms:.1f} ms, peak "
+        f"device memory {peak_gb:.2f} GB; " + ", ".join(f"{k} {v:.2f} ms" for k, v in parts.items())
+        + f"; the rest (host, small ops) {rest:.1f} ms")
+    return {"step_ms": step_ms, "peak_gb": peak_gb, "parts_ms": parts, "rest_ms": rest}
+
+
+def phase_b4_path(x, y):
+    """exact_engine="hutchinson" at N = 3,072: the backward goes through B4
+    (fewer than 8 tile rows of 512 in the reference's rule)."""
+    import torch
+
+    from gpras_tpu_torch import GPRAS
+
+    model = GPRAS("Matern52", model_type="exact", exact_engine="hutchinson", device=DEVICE)
+    zero_counters()
+    t0 = time.perf_counter()
+    model.fit(x[:3072], y[:3072], optimization_method="adam", learning_rate=0.02, max_iter=2)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    losses = model.fit_info["losses"].tolist()
+    log(f"[b4-path] Hutchinson fit at N=3072, {P} modes, 2 steps: {time.perf_counter() - t0:.2f} s;"
+        f" losses {losses}; launches {launches}")
+    if launches["kgrad_dense"] == 0 or not all(math.isfinite(v) for r in losses for v in r):
+        raise AssertionError("B4 did not run on the path, or a loss is not finite")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -320,27 +647,51 @@ def main() -> int:
     report = phase_kernels()
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
-    pred, first_request, launches, cache_s, latencies = phase_serving(out)
+    pred, first_request, serving_launches, cache_s, latencies = phase_serving(out)
     phase_dense_check(pred, first_request)
+    del pred
+    torch.cuda.empty_cache()
+    x, y, _ = training_set()
+    model, train_launches, training, start = phase_training(x, y)
+    checks = phase_training_check(model, start)
+    step = phase_step_breakdown(model)
+    del model
+    torch.cuda.empty_cache()
+    b4_launches = phase_b4_path(x, y)
 
-    slice_shape = {"kmv_dense": ("Matern52", f"256x{N} R=1"),
-                   "kmv_sym": ("Matern52", f"{N}x{N} R=256")}
-    replaces = {"kmv_dense": "gpras_tpu/ops/pallas_gram.py:84 (_kmv_body)",
-                "kmv_sym": "gpras_tpu/ops/pallas_gram.py:152 (_kmv_sym_body)"}
+    launches = {"kmv_dense": serving_launches["kmv_dense"],
+                "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
+                "kgrad_sym": train_launches["kgrad_sym"], "kgrad_dense": b4_launches["kgrad_dense"]}
+    path_shape = {"gram": ("Matern52", f"{N}x{N} +noise"),
+                  "kmv_dense": ("Matern52", f"256x{N} R=1"),
+                  "kmv_sym": ("Matern52", f"{N}x{N} R=256"),
+                  "kgrad_dense": ("Matern52", f"N=3072 m={M}"),
+                  "kgrad_sym": ("Matern52", f"N={N} m={M}")}
+    sources = {"gram": ("gpras_tpu_torch/csrc/gram.cu",
+                        "gpras_tpu/ops/pallas_gram.py:77 (_tile_body, pallas_gram :268)"),
+               "kmv_dense": ("gpras_tpu_torch/csrc/kmv.cu",
+                             "gpras_tpu/ops/pallas_gram.py:84 (_kmv_body)"),
+               "kmv_sym": ("gpras_tpu_torch/csrc/kmv.cu",
+                           "gpras_tpu/ops/pallas_gram.py:152 (_kmv_sym_body)"),
+               "kgrad_dense": ("gpras_tpu_torch/csrc/kgrad.cu",
+                               "gpras_tpu/ops/pallas_gram.py:534 (_kgrad_body, pallas_kgrad :701)"),
+               "kgrad_sym": ("gpras_tpu_torch/csrc/kgrad.cu",
+                             "gpras_tpu/ops/pallas_gram.py:606 (_kgrad_sym_body, pallas_kgrad :701)")}
     kernels = []
-    for name in ("kmv_dense", "kmv_sym"):
-        err, ms, plain_ms = report[name][slice_shape[name]]
-        # launches counts wrapper calls; the CUDA grids one call issues are
-        # in fused_gram's docstring (kmv_sym: 769 at N = 49,152)
-        kernels.append({"name": name, "route": "cuda",
-                        "source": "gpras_tpu_torch/csrc/kmv.cu", "replaces": replaces[name],
-                        "launches": launches[name], "max_abs_err": err, "ms": ms,
-                        "plain_ms": plain_ms, "shape": " ".join(slice_shape[name]),
-                        "at_serving_shapes": {
-                            f"{kernel} {shape}": {"max_abs_err": e, "ms": t, "plain_ms": tp}
-                            for (kernel, shape), (e, t, tp) in report[name].items()}})
+    for name in ("gram", "kmv_dense", "kmv_sym", "kgrad_dense", "kgrad_sym"):
+        row = report[name][path_shape[name]]
+        # launches counts wrapper calls on the path; the CUDA grids one call
+        # issues are in fused_gram's docstring (kmv_sym: 769 at N = 49,152)
+        kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
+                        "replaces": sources[name][1], "launches": launches[name], **row,
+                        # no single PyTorch call computes a fused covariance
+                        # Gram, matvec or gradient contraction
+                        "library_ms": None, "shape": " ".join(path_shape[name]),
+                        "at_checked_shapes": {f"{kernel} {shape}": r for (kernel, shape), r
+                                              in report[name].items()}})
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
+    log(json.dumps({"training": training, "training_checks": checks, "step": step}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

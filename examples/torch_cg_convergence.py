@@ -128,7 +128,8 @@ def main() -> int:
     import torch
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--device", default="cuda" if torch.cuda.is_available() else "cpu")
+    ap.add_argument("--device", default="cuda",
+                    help="where to run: the card by default, 'cpu' only when asked")
     ap.add_argument("--n", type=int, nargs="+", default=[8192])
     args = ap.parse_args()
     if args.device != "cpu":

@@ -6,10 +6,13 @@ path (``gpras_tpu/gp/exact_cg.py`` -> ``gpras_tpu_torch/gp/exact_cg.py``).
 Plain tensor code is PyTorch; each Pallas kernel of the reference becomes a
 CUDA C++ kernel written for Hopper (``csrc/``), built with nvcc at first use.
 
-Ported so far: the exact-GP serving path — checkpoint format, kernel zoo,
-dense and matrix-free (batched-CG) posteriors, EOF preprocessing and the
-bucketed ``PosteriorPredictor``. Training and the sparse backends are still
-to come (ROADMAP.md, queue A).
+Ported so far: the exact-GP path — training (``GPRAS.fit``: the dense and
+Hutchinson engines, Adam, the warm-start protocol) and serving (checkpoint
+format, kernel zoo, dense and matrix-free batched-CG posteriors, EOF
+preprocessing and the bucketed ``PosteriorPredictor``). The CG training
+loss, the other optimizers and the sparse backends are still to come
+(ROADMAP.md, queue A). Entry points run on the card (``device="cuda"``)
+unless the caller asks for the CPU.
 
 Import rule: this package imports ``torch`` and ``numpy`` and NEVER ``jax``,
 nor ``gpras_tpu`` (whose ``__init__`` imports jax). The machine that runs the

@@ -46,34 +46,16 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "stationary.cuh"
+
 namespace {
+
+using namespace stationary;
 
 constexpr int T = 64;            // covariance tile edge (rows and columns)
 constexpr int THREADS = 256;     // 16 x 16 threads; each owns 4 rows x TR columns
 constexpr int KC = 16;           // rows of V staged in shared memory per step
 constexpr int KPAD = T + 4;      // padded tile row: float4-aligned, fewer bank conflicts
-
-enum { RBF = 0, MATERN12 = 1, MATERN32 = 2, MATERN52 = 3, EXPONENTIAL = 4 };
-
-template <int KERN>
-__device__ __forceinline__ float covariance(float r2, float var) {
-  if constexpr (KERN == RBF) {
-    return var * expf(-0.5f * r2);
-  } else {
-    const float r = sqrtf(fmaxf(r2, 1e-36f));
-    if constexpr (KERN == MATERN12) {
-      return var * expf(-r);
-    } else if constexpr (KERN == MATERN32) {
-      const float s3r = 1.7320508075688772f * r;
-      return var * (1.0f + s3r) * expf(-s3r);
-    } else if constexpr (KERN == MATERN52) {
-      const float s5r = 2.23606797749979f * r;
-      return var * (1.0f + s5r + (5.0f / 3.0f) * r2) * expf(-s5r);
-    } else {
-      return var * expf(-0.5f * r);  // EXPONENTIAL
-    }
-  }
-}
 
 // Shared-memory carve-up. Ks comes first so its float4 reads stay aligned.
 struct Smem {

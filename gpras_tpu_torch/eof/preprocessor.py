@@ -69,7 +69,7 @@ class PreProcessor:
         n_samples_fit: float = 0,
         x_mean: np.ndarray | None = None,
         x_std: np.ndarray | None = None,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ) -> None:
         self.spatial_mode_count = spatial_mode_count
         self.input_mean = np.empty(0) if input_mean is None else np.asarray(input_mean)
@@ -251,7 +251,7 @@ class PreProcessor:
 
     @classmethod
     def from_file(cls, in_path: str | PathLike[str],
-                  device: str | torch.device = "cpu") -> "PreProcessor":
+                  device: str | torch.device = "cuda") -> "PreProcessor":
         meta, arrays = load_artifact(in_path)
         if meta.get("class", "PreProcessor") != "PreProcessor":
             raise NotImplementedError(

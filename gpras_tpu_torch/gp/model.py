@@ -1,32 +1,46 @@
-"""GPRAS: the high-level multi-output GP model — exact-GP serving.
+"""GPRAS: the high-level multi-output GP model — the exact GP, fit and served.
 
 Port of the exact branch of ``gpras_tpu/gp/model.py``: one latent GP per EOF
 mode, parameters batched along a leading mode axis, posterior factors cached
-once and reused by every ``predict``. The reference ``vmap``s over modes;
-here a Python loop walks them. Checkpoints are the reference's npz + JSON
-manifest (``utils/serialization.py``), so either package loads the other's.
+once and reused by every ``predict``. The reference ``vmap``s (or
+``lax.map``s) over modes; here a Python loop walks them. Checkpoints are the
+reference's npz + JSON manifest (``utils/serialization.py``), so either
+package loads the other's.
+
+Training follows the reference's engine ladder (``_loss_fn``): the dense
+custom-gradient NLML up to ``SUPER_THRESHOLD`` points (the reference's
+"lean" panel-scan backward between 8,192 and 16,384 points maps to it), the
+Hutchinson stochastic-trace engine (``gp/exact_stochastic.py``, kernels
+B1, B4 and B5) up to ``CG_THRESHOLD``. The matrix-free CG training loss
+above it is not ported yet and raises (ROADMAP.md item A1), as does a
+distributed fit (``mesh=``).
 
 The posterior cache follows the reference's ladder: a dense Cholesky factor
 per mode up to ``SUPER_THRESHOLD`` training points, the matrix-free CG engine
 (``gp/exact_cg.py``: alpha + a rank-64 pivoted-Cholesky preconditioner per
 mode, no (N, N) buffer) above it or with ``exact_engine="cg"``.
 
-Not ported yet (ROADMAP.md, queue A): ``fit`` (raises NotImplementedError)
-and the ``sgpr`` / ``svgp`` backends (their construction raises).
+Everything runs on ``device``, the card unless the caller asks for the CPU.
+Not ported yet (ROADMAP.md, queue A): the ``sgpr`` / ``svgp`` backends (their
+construction raises).
 """
 
 from __future__ import annotations
 
+import math
 from pathlib import Path
 from typing import Any, Literal, Self
 
 import numpy as np
 import torch
 
+from gpras_tpu_torch.fit import optimizers as fitters
 from gpras_tpu_torch.gp import exact as exact_gp
+from gpras_tpu_torch.gp import exact_stochastic, warmstart
 from gpras_tpu_torch.gp.exact_cg import cg_posterior_alpha, cg_predict, pivoted_cholesky
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import linalg
+from gpras_tpu_torch.utils.profiling import log_fit_losses
 from gpras_tpu_torch.utils.serialization import load_artifact, save_artifact
 
 Tensor = torch.Tensor
@@ -62,7 +76,7 @@ def _torch_dtype(dtype: Any) -> torch.dtype:
 
 
 class GPRAS:
-    """Multi-output GP for HEC-RAS upskilling/emulation — exact-GP serving."""
+    """Multi-output GP for HEC-RAS upskilling/emulation — the exact GP."""
 
     #: thresholds of the reference's exact-engine ladder, kept for parity
     #: (sized there for a 16 GB TPU; re-deriving them for an 80 GB card is a
@@ -74,10 +88,11 @@ class GPRAS:
 
     def __init__(self, kernel: KernelType, model_type: ModelBackendType = "sgpr",
                  dtype: Any = torch.float32, exact_engine: str = "auto",
-                 device: str | torch.device = "cpu") -> None:
-        """``exact_engine`` names the reference's exact training engines
-        ("auto", "dense", "lean", "hutchinson", "cg"); for serving only "cg"
-        matters: it forces the matrix-free posterior at any N."""
+                 device: str | torch.device = "cuda") -> None:
+        """``exact_engine`` picks the training loss ("auto" scales with N:
+        dense, then Hutchinson above 16,384 points; "dense", "lean" (= dense
+        here), "hutchinson"; "cg" is not ported for training). For serving,
+        "cg" forces the matrix-free posterior at any N."""
         if kernel not in K.KERNEL_NAMES:
             raise ValueError(f"Unknown kernel {kernel!r}")
         if model_type not in ("sgpr", "svgp", "exact"):
@@ -95,16 +110,147 @@ class GPRAS:
         self.dtype = _torch_dtype(dtype)
         self.device = torch.device(device)
         self.params: dict[str, Tensor] | None = None  # batched: leading axis = mode
+        self.fit_info: dict[str, Any] | None = None
+        self.warm_start_info: dict[str, Any] | None = None
         self.x: Tensor | None = None
         self.y: Tensor | None = None
         self.n_inducing: int = 0
         self._cache: tuple | None = None
+        self._hutch_loss = None
+        self._probes: Tensor | None = None
 
-    def fit(self, x, y, *args: Any, **kwargs: Any) -> None:
-        """Training is not ported yet."""
-        raise NotImplementedError(
-            "GPRAS.fit is not ported yet: training is ROADMAP.md queue A item A1 "
-            "(exact-GP fit); load a checkpoint written by gpras_tpu with from_file")
+    # ------------------------------------------------------------------ fitting
+
+    def fit(self, x, y, n_inducing: int = 0, inducing_initializer: str = "kmeans",
+            optimization_method: str = "two-stage",
+            initial_params: dict[str, Tensor] | None = None,
+            warm_start_subsample: int = 0, mesh: Any = None, **opt_kwargs: Any) -> None:
+        """Fit one latent GP per output column of ``y``, mode after mode.
+
+        The reference's signature and defaults; ``n_inducing`` and
+        ``inducing_initializer`` are ignored by the exact backend.
+        ``initial_params`` starts from a mode-batched parameter dict (e.g. a
+        loaded checkpoint's ``params``).
+
+        ``warm_start_subsample`` first runs the same fit on a uniform
+        subsample (every ceil(N / subsample)-th point, used only when N is at
+        least twice the subsample), then starts the full-N fit from its
+        optimum. In float32 the transfer is clamped and certified by one
+        full-N forward loss per mode (``gp/warmstart.py``; the per-mode caps
+        and certifying losses land in ``self.warm_start_info``).
+
+        In float32, "adam" and "two-stage" default to a noise-variance floor
+        of 1e-4 and to non-finite step rejection, as in the reference.
+        ``self.fit_info`` holds the optimizer's per-mode ``iterations``,
+        ``losses`` and ``loss``, stacked along the mode axis.
+        """
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh-distributed fitting is not ported yet (ROADMAP.md item A6)")
+        if optimization_method not in fitters.FITTERS:
+            raise ValueError(f"Unknown optimizer {optimization_method!r}; expected one of "
+                             f"{sorted(fitters.FITTERS)}")
+        # invalidate BEFORE mutating: a fit that raises mid-way must not
+        # leave stale posterior factors paired with the new training data
+        self._cache = None
+        self.params = None
+        self.fit_info = None
+        self.x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
+        self.y = torch.as_tensor(y, dtype=self.dtype, device=self.device)
+        if self.y.ndim == 1:
+            self.y = self.y[:, None]
+        self.n_inducing = int(n_inducing)
+        p_modes = self.y.shape[1]
+        n = self.x.shape[0]
+        # the engine closure and the probes are built for one N
+        self._hutch_loss = None
+        self._probes = None
+
+        warm_ratio_cap = float(opt_kwargs.pop("warm_ratio_cap", warmstart.DEFAULT_RATIO_CAP))
+        self.warm_start_info = None
+        if warm_start_subsample > 0 and initial_params is None \
+                and n >= 2 * warm_start_subsample:
+            # ceil stride keeps the warm stage at <= subsample points
+            stride = -(-n // warm_start_subsample)
+            warm = GPRAS(self.kernel_str, model_type="exact", dtype=self.dtype,
+                         exact_engine=self.exact_engine, device=self.device)
+            warm.fit(self.x[::stride], self.y[::stride],
+                     optimization_method=optimization_method, **opt_kwargs)
+            initial_params = warm.params
+            if self.dtype == torch.float32:
+                # clamp + certify the rung's parameters against the full-N loss
+                fallback = {k: v.expand((p_modes,) + v.shape)
+                            for k, v in exact_gp.init_params(self.kernel_str, self.x).items()}
+                initial_params, self.warm_start_info = warmstart.certify_transfer_batched(
+                    lambda p, i: self._loss_fn(p, self.y[:, i]), initial_params, fallback,
+                    ratio_cap=warm_ratio_cap)
+
+        if initial_params is not None:
+            lead = next(iter(initial_params.values())).shape[0]
+            if lead != p_modes:
+                raise ValueError(f"initial_params has {lead} modes, y has {p_modes}")
+            batched0 = {k: torch.as_tensor(v, dtype=self.dtype, device=self.device)
+                        for k, v in initial_params.items()}
+        else:
+            # the same init for every mode (leading axis = mode)
+            batched0 = {k: v.expand((p_modes,) + v.shape)
+                        for k, v in exact_gp.init_params(self.kernel_str, self.x).items()}
+
+        fitter = fitters.FITTERS[optimization_method]
+        if self.dtype == torch.float32 and optimization_method in ("adam", "two-stage"):
+            # float32 guards (overridable): a noise floor and non-finite step
+            # rejection; without them a large-N exact fit NaNs once Adam
+            # overshoots what the factorization can represent
+            opt_kwargs.setdefault("lower_bounds", {"log_noise_variance": math.log(1e-4)})
+            opt_kwargs.setdefault("reject_nonfinite", True)
+        fitted, infos = [], []
+        for i in range(p_modes):
+            y_i = self.y[:, i]
+            p_i, info = fitter(lambda p, y_i=y_i: self._loss_fn(p, y_i),
+                               {k: v[i].contiguous() for k, v in batched0.items()},
+                               **opt_kwargs)
+            fitted.append(p_i)
+            infos.append(info)
+        self.params = {k: torch.stack([p[k] for p in fitted]) for k in fitted[0]}
+        self.fit_info = {k: torch.stack([torch.as_tensor(info[k]) for info in infos])
+                         for k in infos[0]}
+        self._cache = None
+        log_fit_losses(self.fit_info, name=f"GPRAS[{self.kernel_str}/{self.model_type}]")
+
+    def _engine(self) -> str:
+        """The training engine for the current N (the reference's ladder)."""
+        n = self.x.shape[0]
+        engine = self.exact_engine
+        if engine == "auto":
+            if n > self.CG_THRESHOLD:
+                engine = "cg"
+            elif n > self.SUPER_THRESHOLD:
+                engine = "hutchinson"
+            elif n > self.LEAN_THRESHOLD:
+                engine = "lean"
+            else:
+                engine = "dense"
+        if engine == "lean":
+            engine = "dense"  # the panel-scan backward is not ported (ROADMAP.md A1)
+        return engine
+
+    def _loss_fn(self, params: dict[str, Tensor], y_i: Tensor) -> Tensor:
+        """Mode ``y_i``'s training loss (NLML minus log prior) at ``params``."""
+        engine = self._engine()
+        if engine == "cg":
+            raise NotImplementedError(
+                "the matrix-free CG training loss (exact_engine='cg', or 'auto' above "
+                f"{self.CG_THRESHOLD} points) is not ported yet (ROADMAP.md item A1)")
+        if engine == "hutchinson":
+            n = self.x.shape[0]
+            if self._hutch_loss is None:
+                self._hutch_loss = exact_stochastic.make_hutchinson_training_loss(
+                    self.kernel_str, fused_gram=n > self.SUPER_THRESHOLD)
+                # fixed probes: a deterministic objective (the reference's PRNGKey(0))
+                self._probes = exact_stochastic.rademacher_probes(
+                    n, 16, dtype=self.dtype, device=self.device)
+            return self._hutch_loss(params, self.x, y_i, self._probes)
+        return exact_gp.training_loss(self.kernel_str, params, self.x, y_i)
 
     # --------------------------------------------------------------- prediction
 
@@ -180,7 +326,7 @@ class GPRAS:
         save_artifact(path, meta, arrays)
 
     @classmethod
-    def from_file(cls, path: str | Path, device: str | torch.device = "cpu") -> Self:
+    def from_file(cls, path: str | Path, device: str | torch.device = "cuda") -> Self:
         meta, arrays = load_artifact(path)
         inst = cls(meta["kernel"], model_type=meta["model_type"], dtype=meta["dtype"],
                    exact_engine=meta.get("exact_engine", "auto"), device=device)

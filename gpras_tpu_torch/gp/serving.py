@@ -32,7 +32,7 @@ def make_field_decoder(
     weights: np.ndarray | None = None,
     elevations: np.ndarray | None = None,
     hydraulic_parameter: str = "wse",
-    device: str | torch.device = "cpu",
+    device: str | torch.device = "cuda",
 ) -> Callable:
     """On-device EOF reverse transform: ``(mode_mean, mode_var) -> (field,
     field_var)`` tensors on ``device``, numerically the same as
@@ -101,7 +101,7 @@ class PosteriorPredictor:
                  hf_preprocessor_path: str | Path | None = None,
                  lf_preprocessor_path: str | Path | None = None,
                  buckets: tuple[int, ...] = DEFAULT_BUCKETS,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.device = torch.device(device)
         self.model = GPRAS.from_file(model_path, device=self.device)
         self.model._ensure_cache()  # factorize once at load time

@@ -2,7 +2,8 @@
 
 nvcc compiles the sources into one shared library with a plain C interface
 for ``sm_90a`` (Hopper), at first use, into ``build/gpras_tpu_torch/`` beside
-the package (git-ignored). The library's file name carries a hash of the
+the package (git-ignored): one nvcc process per source, all started together,
+then one link. The library's file name carries a hash of the
 sources and flags, so an edited source is rebuilt and a stale library is
 never loaded. A failed build raises: nothing falls back.
 
@@ -23,7 +24,7 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "gpras_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -31,6 +32,8 @@ _I = ctypes.c_int
 _SIGNATURES = {
     "gpras_kmv_dense": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpras_kmv_sym": [_I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P],
+    "gpras_gram": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gpras_kgrad": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -59,6 +62,19 @@ def library_path() -> Path:
     return BUILD_DIR / f"libgpras_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds: list[list[str]]) -> str:
+    """Start every command at once, wait for all; their joined output.
+    Raises if any failed."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    failed = [f"nvcc failed ({proc.returncode}):\n{' '.join(c)}\n{out}"
+              for c, proc, out in zip(cmds, procs, outs) if proc.returncode != 0]
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return "".join(outs)
+
+
 def build() -> tuple[Path, str]:
     """Compile the sources if their library is missing. Returns (path, the
     compiler's output, which carries ptxas' register and spill report; empty
@@ -68,13 +84,16 @@ def build() -> tuple[Path, str]:
         return path, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = path.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, _sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{log}")
-    os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
+    objs = [tmp.with_suffix(f".{src.stem}.o") for src in _sources()]
+    try:
+        log = _run_all([[_nvcc(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+                        for src, obj in zip(_sources(), objs)])
+        log += _run_all([[_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                          *map(str, objs)]])
+        os.replace(tmp, path)  # atomic: a concurrent loader never sees a partial file
+    finally:
+        for f in [tmp, *objs]:
+            f.unlink(missing_ok=True)
     path.with_suffix(".log").write_text(log)
     return path, log
 

@@ -1,32 +1,40 @@
-"""Fused stationary-covariance matvecs: (K(x1, x2) [+ noise I]) @ V with the
-covariance tile never stored in device memory.
+"""Fused stationary-covariance kernels: the Gram matrix, its matvec, and the
+training gradient contraction, each a CUDA C++ kernel for Hopper.
 
-Counterpart of ``gpras_tpu/ops/pallas_gram.py``'s ``pallas_kmv``. Its two
-Pallas bodies become two CUDA C++ kernels for Hopper (``csrc/kmv.cu``, whose
-header note says what bounds them on an H100 and how the design answers it):
+Counterpart of ``gpras_tpu/ops/pallas_gram.py``. Its five Pallas bodies
+become CUDA C++ kernels (``csrc/*.cu``; each file's header note says what
+bounds it on an H100 and how the design answers it):
 
-- ``kmv_dense`` (B2) replaces ``_kmv_body``: any (x1, x2); the square case
-  adds noise on the global diagonal. A row tile's block sweeps the column
-  tiles with its accumulators in registers; when there are too few row tiles
-  to fill the card (the posterior mean of a 64- or 256-query bucket) the
-  column sweep is split across blocks and the partial sums are added in a
-  fixed order by a second pass.
-- ``kmv_sym`` (B3) replaces ``_kmv_sym_body``: square only, upper-triangle
-  tiles, each built once and contracted twice, walked as a diagonal
-  wavefront of launches so every accumulator has one writer per launch
-  (deterministic, no atomics).
+- ``gram`` (B1, ``csrc/gram.cu``) replaces ``_tile_body``: K(x1, x2) with
+  noise on the diagonal when square, written once to device memory.
+- ``kmv_dense`` (B2, ``csrc/kmv.cu``) replaces ``_kmv_body``: any (x1, x2);
+  the square case adds noise on the global diagonal. A row tile's block
+  sweeps the column tiles with its accumulators in registers; when there are
+  too few row tiles to fill the card (the posterior mean of a 64- or
+  256-query bucket) the column sweep is split across blocks and the partial
+  sums are added in a fixed order by a second pass.
+- ``kmv_sym`` (B3, ``csrc/kmv.cu``) replaces ``_kmv_sym_body``: square only,
+  upper-triangle tiles, each built once and contracted twice, walked as a
+  diagonal wavefront of launches so every accumulator has one writer per
+  launch (deterministic, no atomics).
+- ``kgrad_dense`` (B4) and ``kgrad_sym`` (B5, ``csrc/kgrad.cu``) replace
+  ``_kgrad_body`` and ``_kgrad_sym_body``: sum_ij Kbar_ij dK_ij/dtheta for
+  the rank-(m+1) training cotangent, per-tile partial sums added in a fixed
+  order in float64. ``kgrad`` picks between them by the reference's rule.
 
-Both contract in plain fp32 FMA (no TF32 anywhere). Inputs are pre-scaled by
-the ARD lengthscales here, outside the kernel, as the reference does.
+All compute in plain fp32 (no TF32 anywhere). Inputs are pre-scaled by the
+ARD lengthscales here, outside the kernels, as the reference does.
 
-``kmv_plain`` is the kernels' plain PyTorch version (row panels of
-``kernels.gram`` @ V, plus noise * V): a wrapper uses it only when its
-tensors lie on the CPU. On a CUDA tensor a wrapper launches its kernel or
-raises — there is no fallback. Each wrapper counts its kernel launches in a
-plain integer attribute (``kmv_dense.launches``, ``kmv_sym.launches``): one
-per wrapper call that runs its kernel. A ``kmv_dense`` call is one CUDA grid,
-or two when it splits its sweep; a ``kmv_sym`` call on N rows is ceil(N / 64)
-wavefront grids plus one grid that adds the mirror (769 at N = 49,152).
+Each kernel has a plain PyTorch version beside it (``gram_plain``,
+``kmv_plain``, ``kgrad_plain``); a wrapper uses it only when its tensors lie
+on the CPU. On a CUDA tensor a wrapper launches its kernel or raises — there
+is no fallback. Each wrapper counts its kernel launches in a plain integer
+attribute (``gram.launches``, ``kmv_dense.launches``, ...): one per wrapper
+call that runs its kernel. A ``gram`` call is one CUDA grid; a ``kgrad_*``
+call two (the tiles, then the fixed-order sum); a ``kmv_dense`` call is one
+grid, or two when it splits its sweep; a ``kmv_sym`` call on N rows is
+ceil(N / 64) wavefront grids plus one grid that adds the mirror (769 at
+N = 49,152).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ Tensor = torch.Tensor
 KERNEL_IDS = {"RBF": 0, "Matern12": 1, "Matern32": 2, "Matern52": 3, "Exponential": 4}
 TILE = 64        # covariance tile edge of both CUDA kernels
 MAX_DIM = 128    # input dimensions the kernels stage in shared memory
+MAX_PROBES = 128  # probe columns kgrad stages in shared memory
 
 
 def kmv_plain(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
@@ -66,26 +75,29 @@ def _on_cpu(*tensors: Tensor | None) -> bool:
         raise ValueError(f"tensors on different devices: {sorted(map(str, devices))}")
     kind = devices.pop().type
     if kind not in ("cpu", "cuda"):
-        raise ValueError(f"fused kmv runs on cpu (plain) or cuda (kernel), got {kind}")
+        raise ValueError(f"the fused kernels run on cpu (plain) or cuda (kernel), got {kind}")
     return kind == "cpu"
 
 
-def _kernel_args(kernel: str, params: dict[str, Tensor], v: Tensor,
-                 noise: Tensor | float | None, *xs: Tensor):
-    """Check what the CUDA kernels take and pre-scale the coordinates.
+def _kernel_args(kernel: str, params: dict[str, Tensor], noise: Tensor | float | None,
+                 xs: tuple[Tensor, ...], others: tuple[Tensor, ...] = ()):
+    """Check what the CUDA kernels take and pre-scale the coordinates ``xs``.
     Returns (kernel id, scaled xs..., variance (1,), noise (1,))."""
     if kernel not in KERNEL_IDS:
-        raise ValueError(f"the fused kmv kernels support {sorted(KERNEL_IDS)}, got {kernel}")
-    for t in (v, *xs):
+        raise ValueError(f"the fused kernels support {sorted(KERNEL_IDS)}, got {kernel}")
+    for t in (*xs, *others):
         if t.dtype != torch.float32:
-            raise TypeError(f"the fused kmv kernels take float32 tensors, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError("the fused kmv kernels take contiguous 2-D tensors, got "
+            raise TypeError(f"the fused kernels take float32 tensors, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError("the fused kernels take contiguous tensors, got "
                              f"shape {tuple(t.shape)} strides {t.stride()}")
+    for t in xs:
+        if t.dim() != 2:
+            raise ValueError(f"the fused kernels take 2-D inputs, got shape {tuple(t.shape)}")
     d = xs[0].shape[1]
     if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"the fused kmv kernels take 1..{MAX_DIM} input dimensions, got {d}")
-    dev = v.device
+        raise ValueError(f"the fused kernels take 1..{MAX_DIM} input dimensions, got {d}")
+    dev = xs[0].device
     ls = torch.exp(params["log_lengthscales"]).to(device=dev, dtype=torch.float32)
     scaled = [(x / ls).contiguous() for x in xs]
     var = torch.exp(params["log_variance"]).to(device=dev, dtype=torch.float32).reshape(1)
@@ -112,7 +124,9 @@ def kmv_dense(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
     xb = x1 if square else x2
     if xb.shape[0] != v.shape[0]:
         raise ValueError(f"v has {v.shape[0]} rows, x2 has {xb.shape[0]}")
-    kid, a, b, var, nz = _kernel_args(kernel, params, v, noise if square else None, x1, xb)
+    if v.dim() != 2:
+        raise ValueError(f"v must be 2-D, got shape {tuple(v.shape)}")
+    kid, a, b, var, nz = _kernel_args(kernel, params, noise if square else None, (x1, xb), (v,))
     n1, d = a.shape
     n2, r = b.shape[0], v.shape[1]
     out = torch.empty((n1, r), dtype=torch.float32, device=v.device)
@@ -147,7 +161,9 @@ def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
 
     if x.shape[0] != v.shape[0]:
         raise ValueError(f"v has {v.shape[0]} rows, x has {x.shape[0]}")
-    kid, a, var, nz = _kernel_args(kernel, params, v, noise, x)
+    if v.dim() != 2:
+        raise ValueError(f"v must be 2-D, got shape {tuple(v.shape)}")
+    kid, a, var, nz = _kernel_args(kernel, params, noise, (x,), (v,))
     n, d = a.shape
     r = v.shape[1]
     out = torch.empty((n, r), dtype=torch.float32, device=v.device)
@@ -162,3 +178,141 @@ def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
 
 
 kmv_sym.launches = 0
+
+
+# ------------------------------------------------------------------ B1: Gram
+
+
+def gram_plain(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None = None,
+               noise: Tensor | float | None = None) -> Tensor:
+    """Plain version of ``gram``: ``kernels.gram`` plus noise * I when square
+    (added in place on the diagonal: no second (N, N) buffer)."""
+    k = K.gram(kernel, params, x1, x2)
+    if noise is not None and x2 is None:
+        k.diagonal().add_(torch.as_tensor(noise, dtype=k.dtype, device=k.device))
+    return k
+
+
+def gram(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None = None,
+         noise: Tensor | float | None = None) -> Tensor:
+    """K(x1, x2) [+ noise I when x2 is None] through kernel B1.
+
+    x1 (N1, D), x2 (N2, D) -> (N1, N2) float32. Counterpart of the
+    reference's dispatcher ``pallas_gram.gram``."""
+    square = x2 is None
+    if _on_cpu(x1, x2):
+        return gram_plain(kernel, params, x1, x2, noise)
+    from gpras_tpu_torch.ops._build import library
+
+    kid, *scaled, var, nz = _kernel_args(kernel, params, noise if square else None,
+                                         (x1,) if square else (x1, x2))
+    a, b = scaled[0], scaled[-1]
+    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
+    stream = torch.cuda.current_stream(a.device).cuda_stream
+    rc = library().gpras_gram(kid, a.data_ptr(), b.data_ptr(), out.data_ptr(), var.data_ptr(),
+                              nz.data_ptr(), a.shape[0], b.shape[0], a.shape[1], int(square),
+                              stream)
+    gram.launches += 1
+    _check(rc, "gram")
+    return out
+
+
+gram.launches = 0
+
+
+# ------------------------------------------------------ B4, B5: kgrad
+
+
+def kgrad_plain(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z: Tensor,
+                alpha: Tensor, g: Tensor | float, inv_m: float,
+                col_panel: int = 4096) -> dict[str, Tensor]:
+    """Plain version of the gradient contraction: sum_ij Kbar_ij dK_ij/dp for
+    every parameter p of ``params`` (zero where K does not depend on it),
+    with Kbar = g/2 [inv_m W Z^T - alpha alpha^T].
+
+    The reference's panel loop (exact_stochastic.py:142-161): one column
+    panel of the Gram at a time, its cotangent panel built from the
+    low-rank factors, pulled back through ``kernels.gram`` by autograd."""
+    names = list(params)
+    grads = {k: torch.zeros_like(v) for k, v in params.items()}
+    n = x.shape[0]
+    with torch.enable_grad():
+        leaves = {k: v.detach().requires_grad_(v.is_floating_point()) for k, v in params.items()}
+        for c0 in range(0, n, col_panel):
+            cols = slice(c0, min(n, c0 + col_panel))
+            kbar = 0.5 * g * (inv_m * (w @ z[cols].mT) - alpha[:, None] * alpha[cols][None, :])
+            kmat = K.gram(kernel, leaves, x, x[cols])
+            diff = [k for k in names if leaves[k].requires_grad]
+            parts = torch.autograd.grad(kmat, [leaves[k] for k in diff], kbar,
+                                        allow_unused=True)
+            for k, gk in zip(diff, parts):
+                if gk is not None:
+                    grads[k] = grads[k] + gk
+    return grads
+
+
+def _kgrad(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor,
+           z: Tensor, alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
+    if _on_cpu(x, w, z, alpha):
+        grads = kgrad_plain(kernel, params, x, w, z, alpha, g, inv_m)
+        return {"log_variance": grads["log_variance"],
+                "log_lengthscales": grads["log_lengthscales"]}
+    from gpras_tpu_torch.ops._build import library
+
+    n, m = w.shape
+    if alpha.shape != (n,) or z.shape != (n, m) or x.shape[0] != n:
+        raise ValueError(f"kgrad takes x (N, D), w and z (N, m), alpha (N,); got "
+                         f"{tuple(x.shape)}, {tuple(w.shape)}, {tuple(z.shape)}, "
+                         f"{tuple(alpha.shape)}")
+    if not 1 <= m <= MAX_PROBES:
+        raise ValueError(f"kgrad takes 1..{MAX_PROBES} probe columns, got {m}")
+    kid, a, var, _ = _kernel_args(kernel, params, None, (x,), (w, z, alpha))
+    dev = a.device
+    gh = 0.5 * torch.as_tensor(g, dtype=torch.float32, device=dev).reshape(1)
+    scal = torch.cat([var, gh, torch.full((1,), inv_m, dtype=torch.float32, device=dev)])
+    nb = -(-n // TILE)
+    tiles = nb * (nb + 1) // 2 if sym else nb * nb  # kgrad.cu: kgrad_tiles
+    d = a.shape[1]
+    partial = torch.empty((d + 1) * tiles, dtype=torch.float64, device=dev)
+    out = torch.empty(d + 1, dtype=torch.float64, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = library().gpras_kgrad(kid, a.data_ptr(), w.data_ptr(), z.data_ptr(), alpha.data_ptr(),
+                               scal.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, m,
+                               int(sym), stream)
+    wrapper = kgrad_sym if sym else kgrad_dense
+    wrapper.launches += 1
+    _check(rc, wrapper.__name__)
+    out = out.to(x.dtype)
+    return {"log_variance": out[0], "log_lengthscales": out[1:]}
+
+
+def kgrad_dense(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z: Tensor,
+                alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
+    """The gradient contraction over every tile, through kernel B4.
+
+    Returns {"log_variance": (), "log_lengthscales": (D,)}; x (N, D), w and
+    z (N, m), alpha (N,), float32. The noise and jitter diagonal term is the
+    caller's."""
+    return _kgrad(False, kernel, params, x, w, z, alpha, g, inv_m)
+
+
+def kgrad_sym(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z: Tensor,
+              alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
+    """The same contraction over upper-triangle tiles with the folded
+    cotangent Kbar_ij + Kbar_ji^T, through kernel B5."""
+    return _kgrad(True, kernel, params, x, w, z, alpha, g, inv_m)
+
+
+kgrad_dense.launches = 0
+kgrad_sym.launches = 0
+
+
+def kgrad(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z: Tensor,
+          alpha: Tensor, g: Tensor | float, inv_m: float,
+          sym: bool | None = None) -> dict[str, Tensor]:
+    """Counterpart of ``pallas_kgrad``: B5 (``kgrad_sym``) when ``sym``, B4
+    (``kgrad_dense``) otherwise; by default ``sym`` follows the reference's
+    rule, ceil(N / 512) >= 8 (pallas_gram.py:741-742), so B5 from N = 3,585."""
+    if sym is None:
+        sym = -(-x.shape[0] // 512) >= 8
+    return (kgrad_sym if sym else kgrad_dense)(kernel, params, x, w, z, alpha, g, inv_m)

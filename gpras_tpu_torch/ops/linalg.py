@@ -1,9 +1,8 @@
 """Dense linear-algebra helpers for the GP core: Cholesky with jitter, solves.
 
 Port of ``gpras_tpu/ops/linalg.py``: ``default_jitter``, ``add_jitter``,
-``safe_cholesky`` (forward: the x10 jitter escalation), triangular and
-Cholesky solves, and the log-determinant. ``safe_cholesky``'s custom VJP is
-training and waits (ROADMAP.md, queue A).
+``safe_cholesky`` (the x10 jitter escalation, differentiable), triangular and
+Cholesky solves, the log-determinant and ``inv_from_chol``.
 """
 
 from __future__ import annotations
@@ -38,9 +37,48 @@ def cholesky(k: Tensor, jitter: float | None = None) -> Tensor:
     return torch.linalg.cholesky(add_jitter(k, jitter))
 
 
+def _chol_attempt(k: Tensor, jcoef: float | Tensor, symmetrize: bool) -> tuple[Tensor, Tensor]:
+    """One factorization of (sym(K) + jcoef I); returns (L, info)."""
+    if symmetrize:
+        k = 0.5 * (k + k.mT)
+    return torch.linalg.cholesky_ex(k + jcoef * _eye_like(k))
+
+
+class _SafeCholesky(torch.autograd.Function):
+    """Forward: the escalation loop. Backward: the Cholesky gradient of one
+    attempt at the final jitter coefficient, held constant (the reference's
+    custom VJP, linalg.py:99-117)."""
+
+    @staticmethod
+    def forward(ctx, k, max_tries, jitter, symmetrize):
+        # the jitter scale is mean(diag K), which symmetrizing leaves as it is
+        scale = torch.mean(torch.diagonal(k, dim1=-2, dim2=-1))
+        j = float(jitter)
+        l, info = _chol_attempt(k, j * scale, symmetrize)
+        tries = 0
+        while tries < max_tries and bool(torch.any(info != 0)):
+            j = j * 10.0 if j > 0 else default_jitter(k.dtype)
+            l, info = _chol_attempt(k, j * scale, symmetrize)
+            tries += 1
+        if bool(torch.any(info != 0)):
+            l = torch.full_like(l, float("nan"))
+        ctx.save_for_backward(k, j * scale)
+        ctx.symmetrize = symmetrize
+        return l
+
+    @staticmethod
+    def backward(ctx, lbar):
+        k, jcoef = ctx.saved_tensors
+        with torch.enable_grad():
+            kk = k.detach().requires_grad_(True)
+            l, _ = _chol_attempt(kk, jcoef, ctx.symmetrize)
+            (kbar,) = torch.autograd.grad(l, kk, lbar)
+        return kbar, None, None, None
+
+
 def safe_cholesky(k: Tensor, max_tries: int = 5, jitter: float | None = None,
                   *, symmetrize: bool = True) -> Tensor:
-    """Cholesky with adaptive jitter escalation (x10 per retry).
+    """Cholesky with adaptive jitter escalation (x10 per retry), differentiable.
 
     ``jitter`` is the first attempt's relative jitter; ``0.0`` factors K as
     given and starts escalating from ``default_jitter(dtype)`` only on
@@ -48,23 +86,11 @@ def safe_cholesky(k: Tensor, max_tries: int = 5, jitter: float | None = None,
     failure signal is ``cholesky_ex``'s ``info``, and a factor that still
     fails after ``max_tries`` retries is returned as NaN, as the reference's
     is. ``symmetrize`` factors (K + K^T) / 2, as XLA's ``symmetrize_input``.
+    The gradient differentiates one factorization at the final jitter.
     """
     if jitter is None:
         jitter = default_jitter(k.dtype)
-    if symmetrize:
-        k = 0.5 * (k + k.mT)
-    scale = torch.mean(torch.diagonal(k, dim1=-2, dim2=-1))
-    eye = _eye_like(k)
-    j = float(jitter)
-    l, info = torch.linalg.cholesky_ex(k + (j * scale) * eye)
-    tries = 0
-    while tries < max_tries and bool(torch.any(info != 0)):
-        j = j * 10.0 if j > 0 else default_jitter(k.dtype)
-        l, info = torch.linalg.cholesky_ex(k + (j * scale) * eye)
-        tries += 1
-    if bool(torch.any(info != 0)):
-        l = torch.full_like(l, float("nan"))
-    return l
+    return _SafeCholesky.apply(k, int(max_tries), float(jitter), bool(symmetrize))
 
 
 def solve_triangular(l: Tensor, b: Tensor, *, lower: bool = True, trans: bool = False) -> Tensor:
@@ -83,3 +109,9 @@ def cho_solve(l: Tensor, b: Tensor) -> Tensor:
 def logdet_from_chol(l: Tensor) -> Tensor:
     """log det(K) = 2 * sum(log diag(L))."""
     return 2.0 * torch.sum(torch.log(torch.diagonal(l, dim1=-2, dim2=-1)), dim=-1)
+
+
+def inv_from_chol(l: Tensor) -> Tensor:
+    """K^{-1} from the lower factor L (the dense NLML backward)."""
+    linv = solve_triangular(l, _eye_like(l), lower=True)
+    return linv.mT @ linv

@@ -81,6 +81,69 @@ def test_kmv_sym_is_deterministic(device):
     assert torch.equal(a, b)
 
 
+# B1: ragged shapes (masked edges) and whole tiles (64 x 128), cross and square
+@pytest.mark.parametrize("n1, n2", [(1999, 1001), (2048, 1024), (2003, None), (2048, None)])
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_gram_matches_plain(device, kernel, n1, n2):
+    params, x1, x2, _ = _inputs(device, n1, n2 or n1, 5, 1, seed=n1 + 7)
+    x2 = None if n2 is None else x2
+    noise = None if n2 else torch.tensor(0.3, device=device)
+    got = fused_gram.gram(kernel, params, x1, x2, noise=noise)
+    want = fused_gram.gram_plain(kernel, _f64(params), x1.double(),
+                                 None if x2 is None else x2.double(),
+                                 noise=None if noise is None else 0.3)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape
+    assert (got.double() - want).abs().max().item() <= TOL * want.abs().max().item()
+    if n2 is None:  # a point against itself: r2 == 0 exactly, so K_ii == var + noise
+        diag = torch.exp(params["log_variance"]) + noise
+        assert torch.equal(got.diagonal(), diag.expand(n1))
+
+
+def _kgrad_inputs(device, n, d, m, seed):
+    params, x, _, _ = _inputs(device, n, n, d, 1, seed=seed)
+    g = np.random.default_rng(seed + 1)
+    w = torch.tensor(g.normal(size=(n, m)), dtype=torch.float32, device=device)
+    z = torch.tensor(g.choice([-1.0, 1.0], size=(n, m)), dtype=torch.float32, device=device)
+    alpha = torch.tensor(g.normal(size=n), dtype=torch.float32, device=device)
+    return params, x, w, z, alpha
+
+
+# B4 and B5: ragged N and whole tiles, m = 16 probes as on the training path.
+# The sums run over n^2 fp32 terms taken in float64 per tile; 1e-4 of the
+# largest gradient entry leaves room for fp32 rounding of each term and
+# catches a wrong mask, mirror or diagonal tile (errors of whole tiles).
+@pytest.mark.parametrize("n", [1999, 2048])
+@pytest.mark.parametrize("sym", [False, True])
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_kgrad_matches_plain(device, kernel, sym, n):
+    params, x, w, z, alpha = _kgrad_inputs(device, n, 5, 16, seed=n)
+    got = fused_gram.kgrad(kernel, params, x, w, z, alpha, 1.7, 1.0 / 16, sym=sym)
+    want = fused_gram.kgrad_plain(kernel, _f64(params), x.double(), w.double(), z.double(),
+                                  alpha.double(), 1.7, 1.0 / 16)
+    torch.cuda.synchronize()
+    got_v = torch.cat([got["log_variance"].reshape(1), got["log_lengthscales"]]).double()
+    want_v = torch.cat([want["log_variance"].reshape(1), want["log_lengthscales"]])
+    assert (got_v - want_v).abs().max().item() <= TOL * want_v.abs().max().item(), (got_v, want_v)
+
+
+def test_kgrad_sym_is_deterministic(device):
+    params, x, w, z, alpha = _kgrad_inputs(device, 5003, 8, 16, seed=5)
+    a = fused_gram.kgrad_sym("Matern52", params, x, w, z, alpha, 0.9, 1.0 / 16)
+    b = fused_gram.kgrad_sym("Matern52", params, x, w, z, alpha, 0.9, 1.0 / 16)
+    for k in a:
+        assert torch.equal(a[k], b[k])
+
+
+def test_kgrad_picks_the_references_body(device):
+    params, x, w, z, alpha = _kgrad_inputs(device, 3585, 3, 4, seed=6)
+    before = (fused_gram.kgrad_dense.launches, fused_gram.kgrad_sym.launches)
+    fused_gram.kgrad("RBF", params, x[:3584], w[:3584], z[:3584], alpha[:3584], 1.0, 0.25)
+    fused_gram.kgrad("RBF", params, x, w, z, alpha, 1.0, 0.25)
+    assert (fused_gram.kgrad_dense.launches - before[0],
+            fused_gram.kgrad_sym.launches - before[1]) == (1, 1)
+
+
 def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
     params, x, _, v = _inputs(device, 300, 300, 3, 4, seed=4)
     with pytest.raises(TypeError):
@@ -91,3 +154,9 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
         fused_gram.kmv_dense("Linear", params, x, v)
     with pytest.raises(ValueError, match="devices"):
         fused_gram.kmv_dense("RBF", params, x, v.cpu())
+    with pytest.raises(TypeError):
+        fused_gram.gram("RBF", params, x.double())
+    with pytest.raises(ValueError, match="support"):
+        fused_gram.gram("Periodic", params, x)
+    with pytest.raises(TypeError):
+        fused_gram.kgrad("RBF", params, x, v.double(), v.double(), v[:, 0].double(), 1.0, 0.25)

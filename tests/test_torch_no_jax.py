@@ -1,9 +1,12 @@
 """The port imports no JAX: the machine that runs it on the GPU has none.
 
 A fresh interpreter imports gpras_tpu_torch, serves a tiny exact-GP
-checkpoint on the CPU through every module of the serving slice, and checks
-that neither ``jax`` nor ``gpras_tpu`` was imported along the way."""
+checkpoint on the CPU through every module of the serving slice, fits tiny
+models through the dense and the Hutchinson engines, and checks that neither
+``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
+which runs on that machine too, imports neither."""
 
+import ast
 import os
 import subprocess
 import sys
@@ -23,19 +26,27 @@ field = 5.0 + rng.normal(size=(40, 30)) @ np.diag(np.linspace(1, 2, 30))
 elev = np.zeros(30)
 out = pathlib.Path(tempfile.mkdtemp())
 for name, k in (("lf", 3), ("hf", 2)):
-    pre = PreProcessor(hydraulic_parameter="wse")
+    pre = PreProcessor(hydraulic_parameter="wse", device="cpu")
     pre.fit(field, elev, spatial_mode_count=k)
     pre.to_file(out / f"{name}.npz")
-model = GPRAS("RBF", model_type="exact", exact_engine="cg", dtype=torch.float64)
+model = GPRAS("RBF", model_type="exact", exact_engine="cg", dtype=torch.float64, device="cpu")
 model.x = torch.as_tensor(rng.normal(size=(50, 3)))
 model.y = torch.as_tensor(rng.normal(size=(50, 2)))
 model.params = {"log_variance": torch.zeros(2, dtype=torch.float64),
                 "log_lengthscales": torch.zeros(2, 3, dtype=torch.float64),
                 "log_noise_variance": torch.full((2,), -2.0, dtype=torch.float64)}
 model.to_file(out / "gp.npz")
-pred = PosteriorPredictor(out / "gp.npz", out / "hf.npz", out / "lf.npz", buckets=(8,))
+pred = PosteriorPredictor(out / "gp.npz", out / "hf.npz", out / "lf.npz", buckets=(8,),
+                          device="cpu")
 f, v = pred.predict_field(field[:5])
 assert f.shape == v.shape == (5, 30) and np.isfinite(f).all() and (v >= 0).all()
+x, y = rng.normal(size=(64, 3)), rng.normal(size=(64, 2))
+for engine in ("dense", "hutchinson"):
+    fitted = GPRAS("Matern52", model_type="exact", exact_engine=engine, dtype=torch.float64,
+                   device="cpu")
+    fitted.fit(x, y, optimization_method="adam", max_iter=3, learning_rate=0.05)
+    assert all(torch.isfinite(v).all() for v in fitted.params.values())
+    assert int(fitted.fit_info["iterations"][0]) == 3
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpras_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
@@ -48,3 +59,16 @@ def test_port_runs_without_importing_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_jax_package():
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    names = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names.update(alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.add(node.module)
+    roots = {n.split(".")[0] for n in names}
+    assert "gpras_tpu_torch" in roots  # the scan sees the smoke's imports
+    assert not roots & {"jax", "jaxlib", "gpras_tpu", "optax"}, sorted(roots)

@@ -99,7 +99,7 @@ def test_port_predict_field_matches_jax(artifacts, engine):
 def test_port_checkpoint_loads_in_jax(artifacts, tmp_path):
     """Cross-load: a checkpoint written by the port predicts the same in JAX."""
     out, _ = artifacts
-    port = TGPRAS.from_file(out / "gp_auto.npz")
+    port = TGPRAS.from_file(out / "gp_auto.npz", device="cpu")
     port.to_file(tmp_path / "from_port.npz")
     back = JGPRAS.from_file(tmp_path / "from_port.npz")
     xq = np.random.default_rng(3).normal(size=(7, D))
@@ -118,7 +118,7 @@ def test_port_preprocessor_matches_jax(artifacts):
     and its transforms agree both ways."""
     out, _ = artifacts
     lf, _, elev = _fields()
-    mine = TPre(hydraulic_parameter="wse")
+    mine = TPre(hydraulic_parameter="wse", device="cpu")
     mine.fit(lf, elev, spatial_mode_count=D)
     ref = JPre.from_file(out / "lf.npz")
     np.testing.assert_allclose(mine.eofs, ref.eofs, rtol=1e-9, atol=1e-12)
@@ -129,7 +129,7 @@ def test_port_preprocessor_matches_jax(artifacts):
     modes = ref.transform(req)
     var = np.abs(modes) * 0.1
     f_j, v_j = ref.reverse_transform(modes, var)
-    f_t, v_t = TPre.from_file(out / "lf.npz").reverse_transform(modes, var)
+    f_t, v_t = TPre.from_file(out / "lf.npz", device="cpu").reverse_transform(modes, var)
     np.testing.assert_allclose(f_t, f_j, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(v_t, v_j, rtol=1e-12, atol=1e-15)
 
@@ -153,11 +153,11 @@ def test_params_from_numpy_round_trip(artifacts):
 
 def test_port_refuses_what_it_does_not_serve(artifacts):
     out, _ = artifacts
-    model = TGPRAS.from_file(out / "gp_cg.npz")
+    model = TGPRAS.from_file(out / "gp_cg.npz", device="cpu")
     with pytest.raises(NotImplementedError, match="A1"):
         model.fit(np.zeros((4, D)), np.zeros((4, P)))
     with pytest.raises(NotImplementedError, match="sgpr"):
-        TGPRAS("RBF", model_type="sgpr")
+        TGPRAS("RBF", model_type="sgpr", device="cpu")
 
 
 @pytest.mark.parametrize("active, noise", [((1.0, 0.6, 0.35), 0.01), ((3.5, 3.0, 3.0), 0.1)],
@@ -186,7 +186,8 @@ def test_cg_serving_error_is_the_references(active, noise):
     jax_model = JGPRAS("Matern52", model_type="exact", exact_engine="cg", dtype=jnp.float64)
     jax_model.x, jax_model.y = jnp.asarray(x), jnp.asarray(y)
     jax_model.params = {k: jnp.asarray(v) for k, v in params.items()}
-    port = TGPRAS("Matern52", model_type="exact", exact_engine="cg", dtype=torch.float64)
+    port = TGPRAS("Matern52", model_type="exact", exact_engine="cg", dtype=torch.float64,
+                  device="cpu")
     port.x, port.y = t64(x), t64(y)
     port.params = params_from_numpy(params, dtype=torch.float64)
     (jm, jv), (tm, tv) = jax_model.predict(xq), port.predict(xq)
