@@ -11,10 +11,14 @@ every CUDA kernel on those paths:
 2. kernels vs their plain PyTorch versions (float64 on the same float32
    inputs), for all five stationary covariances, at ragged shapes and at the
    shapes the paths give them, with kernel, plain and bound times: the Gram
-   (B1), the covariance matvecs (B2, B3), the gradient contraction (B4, B5)
+   (B1), the covariance matvecs (B2, B3), the gradient contraction (B4, B5);
+   B2 and B3 also beside torch.matmul on a Gram prebuilt by B1 (fp32, no
+   TF32: the library call a user could make instead), and B3's CUDA grids
+   per call as its entry point counts them, held to the wrapper's plan
 3. serving: write a checkpoint and two EOF preprocessors with the port, load
    them in PosteriorPredictor(device="cuda"), answer two LF-field requests,
-   and show through the launch counters that B2 and B3 ran
+   and show through the launch counters that B2 and B3 ran (and how many
+   CUDA grids B3's calls launched)
 4. serving check: the served posterior of mode 0 against the dense float64
    exact posterior (Cholesky of the full 49,152^2 Gram) on the card
 5. training: GPRAS(...).fit on the same data, warm-started from a 2,048-point
@@ -58,9 +62,11 @@ MEAN_TOL = 1e-3    # served mean vs dense f64: 1e-3 * max|mean|
 VAR_TOL = 1e-2     # served variance vs dense f64: relative
 LOSS_TOL = 1e-5    # full-N float32 training loss vs dense f64: relative (see phase 6)
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
-# tensor cores, and HBM3 bandwidth; the bound of a kernel is the larger of
-# its operations and its bytes over these
+# tensor cores, TF32 on them (dense), and HBM3 bandwidth; the bound of a
+# kernel is the largest of its operations over the rate of the unit that does
+# them and its bytes over the bandwidth
 FP32_FLOPS = 67e12
+TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
 
 
@@ -120,11 +126,13 @@ def phase_build():
         log(f"[build]   {line}")
 
 
-def bound(flops: float, nbytes: float) -> tuple[float, str]:
+def bound(flops: float, nbytes: float, tc_flops: float = 0.0) -> tuple[float, str]:
     """(least time in ms, what binds it) for work of ``flops`` fp32
-    operations that must move ``nbytes`` (inputs read once, outputs written
-    once)."""
-    t_ops, t_bytes = flops / FP32_FLOPS * 1e3, nbytes / HBM_BYTES_S * 1e3
+    operations on the CUDA cores and ``tc_flops`` TF32 operations on the
+    tensor cores (the two run side by side) that must move ``nbytes``
+    (inputs read once, outputs written once)."""
+    t_ops = max(flops / FP32_FLOPS, tc_flops / TF32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -138,9 +146,21 @@ def gram_work(n1: int, n2: int) -> tuple[float, float]:
     return n1 * n2 * entry_ops(), 4.0 * (n1 * n2 + (n1 + n2) * D)
 
 
-def kmv_work(n1: int, n2: int, r: int, sym: bool) -> tuple[float, float]:
-    tiles = n1 * n2 / 2 if sym else n1 * n2  # symmetric: each entry built once
-    return 2.0 * n1 * n2 * r + tiles * entry_ops(), 4.0 * ((n1 + n2) * D + n2 * r + n1 * r)
+def kmv_work(n1: int, n2: int, r: int, sym: bool) -> tuple[float, float, float]:
+    """(fp32 operations, bytes, TF32 operations) of (K(x1, x2) [+ noise I]) @ V
+    at fp32 accuracy: each distinct covariance entry built once on the CUDA
+    cores (half the square when symmetric), the contraction as three TF32
+    products (3xTF32) on the tensor cores."""
+    tiles = n1 * n2 / 2 if sym else n1 * n2
+    return (tiles * entry_ops(), 4.0 * ((n1 + n2) * D + n2 * r + n1 * r),
+            3 * 2.0 * n1 * n2 * r)
+
+
+def kmv_bound_fp32(n1: int, n2: int, r: int, sym: bool) -> float:
+    """The earlier fp32-only bound, kept beside the new one for comparison:
+    the contraction as fp32 operations at 67 TFLOP/s too."""
+    flops, nbytes, tc_flops = kmv_work(n1, n2, r, sym)
+    return bound(flops + tc_flops / 3, nbytes)[0]
 
 
 def kgrad_work(n: int) -> tuple[float, float]:
@@ -164,7 +184,8 @@ def flat(out):
 def phase_kernels():
     """Each kernel against its plain version, run in float64 on the same
     float32 inputs. The kernels' own error is fp32 rounding of the entries
-    and of sums over up to 49,152 terms (B2, B3) or of 1.2e9 terms taken in
+    and of sums over up to 49,152 terms (B2, B3; B3's 3xTF32 products above
+    16 columns miss ~2^-22 of each product) or of 1.2e9 terms taken in
     float64 per tile (B4, B5), ~1e-6 of the result's scale; the gate
     1e-4 * max|want| catches any wrong tile, mask or mirror (those move a
     result by whole tiles of entries, ~1e-2 of the scale)."""
@@ -175,7 +196,17 @@ def phase_kernels():
 
     dev = torch.device(DEVICE)
     gen = torch.Generator().manual_seed(0)
-    report = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    # report: measured rows of the kernels line; fp32_bounds: B2's and B3's
+    # fp32-only bound (the contraction at the fp32 rate too), printed on
+    # a line of its own beside the kernels line
+    report, fp32_bounds = {}, {}
+
+    def prebuilt_matmul(kernel, params, x1, x2, noise, v):
+        """torch.matmul(K, v) on K = K(x1, x2) [+ noise I] built once by B1:
+        the library call that computes the matvec when K fits on the card."""
+        kmat = fused_gram.gram(kernel, params, x1, x2, noise=noise)
+        return lambda: torch.matmul(kmat, v)
 
     def inputs(n1, n2, r):
         params = {"log_variance": torch.tensor(0.0, device=dev),
@@ -186,9 +217,11 @@ def phase_kernels():
         v = torch.randn(n2, r, generator=gen).to(dev)
         return params, x1, x2, v
 
-    def check(name, kernel, shape, run, want, run_plain32=None, work=None):
+    def check(name, kernel, shape, run, want, run_plain32=None, work=None, library=None):
         """``want``: the float64 plain result, or a function of the kernel's
-        result that returns (max error, scale)."""
+        result that returns (max error, scale). ``library``: a function that
+        sets up the library call (untimed) and returns it, to be timed beside
+        the kernel."""
         got = run()
         if callable(want):
             err, scale = want(got)
@@ -203,11 +236,17 @@ def phase_kernels():
         if run_plain32 is not None:
             ms, plain_ms = cuda_ms(run), cuda_ms(run_plain32)
             bound_ms, bound_by = bound(*work)
+            library_ms = None
+            if library is not None:
+                library_ms = cuda_ms(library())
+                torch.cuda.empty_cache()
             line += f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  " \
                     f"bound {bound_ms:.3f} ms ({bound_by})"
-            report.setdefault(name, {})[(kernel, shape)] = {
-                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                "bound_by": bound_by}
+            if library_ms is not None:
+                line += f"  library {library_ms:.3f} ms"
+            row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                   "bound_by": bound_by, "library_ms": library_ms}
+            report.setdefault(name, {})[(kernel, shape)] = row
         log(line)
         if not ok:
             raise AssertionError(f"{name} {kernel} {shape}: error {err} > {KERNEL_TOL} * {scale}")
@@ -240,7 +279,8 @@ def phase_kernels():
                                          None if n2 else 1e-2, got),
                   lambda: fused_gram.gram_plain(kernel, params, x1, x2, noise=nz),
                   gram_work(n1, n2 or n1))
-        # B2, at the serving shapes: the posterior mean of a 64- or 256-query bucket
+        # B2, at the serving shapes: the posterior mean of a 64- or 256-query
+        # bucket; the library call is torch.matmul on K(x1, x2) built by B1
         for (n1, n2, r, timed) in [(4999, 3001, 1, False), (4999, 3001, 7, False),
                                    (64, N, 1, True), (256, N, 1, True)]:
             params, x1, x2, v = inputs(n1, n2, r)
@@ -249,20 +289,41 @@ def phase_kernels():
                   fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(),
                                        x2=x2.double()),
                   (lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2)) if timed else None,
-                  kmv_work(n1, n2, r, False))
+                  kmv_work(n1, n2, r, False),
+                  library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v))
+            if timed:
+                fp32_bounds[f"kmv_dense {kernel} {n1}x{n2} R={r}"] = kmv_bound_fp32(n1, n2, r,
+                                                                                     False)
         # B3, at the serving shapes: the alpha solve (R = 1) and the variance
         # solves of a 64- and a 256-query bucket; R picks the kernel's build
-        # (1, 4 or 16 columns per thread), so each build runs at the shape it serves
-        for (n, r, timed) in [(5003, 1, False), (5003, 7, False), (N, 1, True), (N, 64, True),
-                              (N, 256, True)]:
+        # (symmetric up to 16, tensor-core 64 or 256 columns a block above), so
+        # each build runs at the shape it serves, and at ragged edges (5003
+        # points; 7, 17 and 300 columns). The grids its calls launched, as the
+        # kernel's entry point counts them, must be the plan's
+        for (n, r, timed) in [(5003, 1, False), (5003, 7, False), (5003, 17, False),
+                              (5003, 300, False), (N, 1, True), (N, 64, True), (N, 256, True)]:
             params, x, _, v = inputs(n, n, r)
             noise = torch.tensor(1e-2, device=dev)
+            calls0, grids0 = fused_gram.kmv_sym.launches, fused_gram.kmv_sym.grids
             check("kmv_sym", kernel, f"{n}x{n} R={r}",
                   lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
                   fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
                   (lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise))
                   if timed else None,
-                  kmv_work(n, n, r, True))
+                  kmv_work(n, n, r, True),
+                  library=lambda: prebuilt_matmul(kernel, params, x, None, noise, v))
+            calls = fused_gram.kmv_sym.launches - calls0
+            grids, rest = divmod(fused_gram.kmv_sym.grids - grids0, calls)
+            planned = fused_gram.kmv_sym_plan(n, D, r, sms).grids
+            log(f"[kernels] kmv_sym     {kernel:11s} {n}x{n} R={r}: {grids} CUDA grids per call "
+                f"over {calls} calls (planned {planned}; the former diagonal wavefront: "
+                f"ceil(N / 64) + 1 = {-(-n // 64) + 1})")
+            if rest or grids != planned:
+                raise AssertionError(f"kmv_sym launched {grids * calls + rest} grids in {calls} "
+                                     f"calls, the plan has {planned} a call")
+            if timed:
+                report["kmv_sym"][(kernel, f"{n}x{n} R={r}")]["grids_per_call"] = grids
+                fp32_bounds[f"kmv_sym {kernel} {n}x{n} R={r}"] = kmv_bound_fp32(n, n, r, True)
         # B4 (the Hutchinson backward up to 3,584 points; 3,072 is phase 7's
         # path) and B5 (above it; 49,152 is the training path), m = 16 probes
         for n, sym in [(3001, False), (3072, False), (3584, False), (5003, True), (N, True)]:
@@ -278,7 +339,7 @@ def phase_kernels():
                   lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
                   kgrad_work(n))
         torch.cuda.empty_cache()
-    return report
+    return report, fp32_bounds
 
 
 def synthetic_fields(rng, n_events: int):
@@ -373,10 +434,12 @@ def phase_serving(out: Path):
             raise AssertionError("non-finite field or negative variance")
     launches = {"kmv_dense": fused_gram.kmv_dense.launches,
                 "kmv_sym": fused_gram.kmv_sym.launches}
-    log(f"[serving] kernel launches during the serving run: {launches}")
+    sym_grids = fused_gram.kmv_sym.grids
+    log(f"[serving] kernel launches during the serving run: {launches}; CUDA grids of those "
+        f"kmv_sym calls: {sym_grids}")
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel of the path never launched: {launches}")
-    return pred, requests[0], launches, cache_s, latencies
+    return pred, requests[0], launches, sym_grids, cache_s, latencies
 
 
 def phase_dense_check(pred, request):
@@ -434,8 +497,11 @@ def counters():
 
 
 def zero_counters() -> None:
+    from gpras_tpu_torch.ops import fused_gram
+
     for fn in counters().values():
         fn.launches = 0
+    fused_gram.kmv_sym.grids = 0
 
 
 def read_counters() -> dict[str, int]:
@@ -644,10 +710,10 @@ def main() -> int:
         return 2
     phase_device()
     phase_build()
-    report = phase_kernels()
+    report, fp32_bounds = phase_kernels()
     out = ROOT / "build" / "chip_smoke"
     out.mkdir(parents=True, exist_ok=True)
-    pred, first_request, serving_launches, cache_s, latencies = phase_serving(out)
+    pred, first_request, serving_launches, sym_grids, cache_s, latencies = phase_serving(out)
     phase_dense_check(pred, first_request)
     del pred
     torch.cuda.empty_cache()
@@ -671,8 +737,8 @@ def main() -> int:
                         "gpras_tpu/ops/pallas_gram.py:77 (_tile_body, pallas_gram :268)"),
                "kmv_dense": ("gpras_tpu_torch/csrc/kmv.cu",
                              "gpras_tpu/ops/pallas_gram.py:84 (_kmv_body)"),
-               "kmv_sym": ("gpras_tpu_torch/csrc/kmv.cu",
-                           "gpras_tpu/ops/pallas_gram.py:152 (_kmv_sym_body)"),
+               "kmv_sym": ("gpras_tpu_torch/csrc/kmv_sym.cu",
+                           "gpras_tpu/ops/pallas_gram.py:152 (_kmv_sym_body, pallas_kmv :376)"),
                "kgrad_dense": ("gpras_tpu_torch/csrc/kgrad.cu",
                                "gpras_tpu/ops/pallas_gram.py:534 (_kgrad_body, pallas_kgrad :701)"),
                "kgrad_sym": ("gpras_tpu_torch/csrc/kgrad.cu",
@@ -680,18 +746,23 @@ def main() -> int:
     kernels = []
     for name in ("gram", "kmv_dense", "kmv_sym", "kgrad_dense", "kgrad_sym"):
         row = report[name][path_shape[name]]
-        # launches counts wrapper calls on the path; the CUDA grids one call
-        # issues are in fused_gram's docstring (kmv_sym: 769 at N = 49,152)
+        # launches counts wrapper calls on the path (kmv_sym's CUDA grids on
+        # the path are on the line before, counted by its entry point; per
+        # call in at_checked_shapes). library_ms: torch.matmul on a Gram prebuilt
+        # by B1 for the matvecs B2 and B3; null for B1, B4 and B5, which no
+        # PyTorch call computes (a stationary Gram, a covariance-derivative
+        # contraction)
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": launches[name], **row,
-                        # no single PyTorch call computes a fused covariance
-                        # Gram, matvec or gradient contraction
-                        "library_ms": None, "shape": " ".join(path_shape[name]),
+                        "shape": " ".join(path_shape[name]),
                         "at_checked_shapes": {f"{kernel} {shape}": r for (kernel, shape), r
                                               in report[name].items()}})
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
+    log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
+                                                "cuda_grids": sym_grids}}))
+    log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,46 +1,30 @@
-// Fused stationary-covariance matvec kernels for Hopper (sm_90a).
+// Fused stationary-covariance matvec kernel B2 for Hopper (sm_90a).
 //
-// Replaces the two Pallas matvec bodies of gpras_tpu/ops/pallas_gram.py:
-//   kmv_dense  <- _kmv_body      (:84-149, launcher pallas_kmv :466-480)
-//   kmv_sym    <- _kmv_sym_body  (:152-257, launcher pallas_kmv :376-464)
-// Both compute (K(a, b) [+ noise I]) @ V from lengthscale-pre-scaled
-// coordinates without ever storing a covariance tile in device memory.
+// Replaces _kmv_body of gpras_tpu/ops/pallas_gram.py (:84-149, launcher
+// pallas_kmv :466-480): (K(a, b) [+ noise I when square]) @ V from
+// lengthscale-pre-scaled coordinates without ever storing a covariance tile
+// in device memory. The symmetric body (B3) is csrc/kmv_sym.cu.
 //
-// What bounds them on an H100: at the serving shapes (N = 49,152, D = 8) one
-// square call evaluates ~1.2e9 covariance entries (upper triangle) and, at
-// R = 256 right-hand sides, ~1.2e12 fp32 flops of contraction, against
-// O(N (D + R)) bytes of input and output. Both are compute-bound: the
-// contraction is fp32 FMA work (no tensor cores: the plain-fp32 contract
-// forbids TF32, 3xTF32 tensor-core versions are later work), and at R = 1 the
-// per-entry transcendental tail (sqrt + exp) dominates. The design keeps each
-// 64 x 64 covariance tile in shared memory, builds it once, and contracts it
-// with V in a register-blocked fp32 FMA loop (4 x TR outputs per thread).
-// B2's posterior-mean call (64 or 256 queries against N = 49,152, R = 1) has
-// only 1 or 4 row tiles for 132 SMs, so the column sweep is split over
-// blocks and the partial sums are added in a fixed order by a second
-// kernel. On an H100 80GB HBM3 at 700 W that is 24x faster than one block
-// per row tile (0.16 vs 4.1 ms), and the two-level sum is more exact: one
-// fp32 accumulator over 49,152 terms left ~7e-6 of the result's scale, the
-// split ~1e-6 (PERF.md).
+// What bounds it on an H100: at the serving shape (256 queries against
+// N = 49,152, D = 8, R = 1) one call evaluates ~1.3e7 covariance entries, each
+// ~28 fp32 operations plus a sqrt and an exp, against 2 for the contraction
+// and O(N D) bytes: it is bound by the entries' operations. The design keeps
+// each 64 x 64 covariance tile in shared memory, builds it once, and contracts
+// it with V in a register-blocked fp32 FMA loop (4 x TR outputs per thread).
+// The posterior-mean call has only 1 or 4 row tiles for 132 SMs, so the
+// column sweep is split over blocks and the partial sums are added in a fixed
+// order by a second kernel. On an H100 80GB HBM3 at 700 W that is 24x faster
+// than one block per row tile (0.16 vs 4.1 ms), and the two-level sum is more
+// exact: one fp32 accumulator over 49,152 terms left ~7e-6 of the result's
+// scale, the split ~1e-6 (PERF.md).
 //
 // Numerics follow _tile_value (:35-74) verbatim: r2 = max(a2 + b2 - 2ab, 0)
 // with the D-wide dot and the norms accumulated in full fp32 by the same FMA
 // chain (so coincident points give r2 == 0 exactly), r = sqrt(max(r2, 1e-36)),
 // the five stationary tails with the same constants, and the noise diagonal
-// on "global row == global column".
+// on "global row == global column". Plain fp32 throughout (no TF32).
 //
-// The symmetric kernel contracts every upper-triangle tile twice:
-//   row[i]    += K_ij V_j
-//   mirror[j] += K_ij^T V_i          (j > i only)
-// Pallas accumulates `mirror` by read-modify-write in device memory, which is
-// race-free only because the TPU grid runs in order. Hopper blocks run
-// concurrently, so the tiles are walked as a diagonal wavefront: launch k
-// handles tiles (i, i + k) for every i, and inside one launch each row[i] and
-// each mirror[i + k] has exactly one writer. Launches run in stream order, so
-// the read-modify-writes never race and the sum order is fixed: the result is
-// deterministic, bit for bit, from run to run. out = row + mirror at the end.
-//
-// Plain C interface (loaded with ctypes). Every entry point returns
+// Plain C interface (loaded with ctypes). The entry point returns
 // cudaGetLastError() after its launches; the Python wrapper raises on nonzero.
 
 #include <cuda_runtime.h>
@@ -136,14 +120,12 @@ __device__ __forceinline__ int col_of(int tx, int j) {
   else return (j >> 2) * 64 + tx * 4 + (j & 3);
 }
 
-// acc[i][j] += sum over the tile's contraction index of K * V.
-//   transposed == false: output row m = ty*4+i, sums over n, V rows vrow0 + n
-//   transposed == true : output row n = ty*4+i, sums over m, V rows vrow0 + m
-// Starts with a barrier, so the caller's tile build is complete before use.
+// acc[i][j] += sum over n of K[m][n] * V[vrow0 + n][col], output row
+// m = ty*4+i. Starts with a barrier, so the caller's tile build is complete
+// before use.
 template <int TR>
 __device__ inline void contract(const Smem& s, const float* __restrict__ v,
-                                int nv, int r, int r0, int vrow0,
-                                bool transposed, float (&acc)[4][TR]) {
+                                int nv, int r, int r0, int vrow0, float (&acc)[4][TR]) {
   constexpr int RCH = 16 * TR;
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   for (int kc = 0; kc < T; kc += KC) {
@@ -156,14 +138,8 @@ __device__ inline void contract(const Smem& s, const float* __restrict__ v,
     __syncthreads();
 #pragma unroll 4
     for (int k = 0; k < KC; ++k) {
-      float kr[4];
-      if (!transposed) {
-        const float4 q = *reinterpret_cast<const float4*>(&s.ks[(kc + k) * KPAD + ty * 4]);
-        kr[0] = q.x; kr[1] = q.y; kr[2] = q.z; kr[3] = q.w;
-      } else {
-#pragma unroll
-        for (int i = 0; i < 4; ++i) kr[i] = s.ks[(ty * 4 + i) * KPAD + kc + k];
-      }
+      const float4 q = *reinterpret_cast<const float4*>(&s.ks[(kc + k) * KPAD + ty * 4]);
+      const float kr[4] = {q.x, q.y, q.z, q.w};
       float vv[TR];
       if constexpr (TR == 1) {
         vv[0] = s.vs[k * RCH + tx];
@@ -183,10 +159,10 @@ __device__ inline void contract(const Smem& s, const float* __restrict__ v,
   }
 }
 
-// Write (or add) a 64-row block of the accumulators into out (n, r).
+// Write a 64-row block of the accumulators into out (n, r).
 template <int TR>
 __device__ inline void store(float* __restrict__ out, const float (&acc)[4][TR],
-                             int n, int r, int row0, int r0, bool accumulate) {
+                             int n, int r, int row0, int r0) {
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -196,18 +172,9 @@ __device__ inline void store(float* __restrict__ out, const float (&acc)[4][TR],
     for (int j = 0; j < TR; ++j) {
       const int c = r0 + col_of<TR>(tx, j);
       if (c >= r) continue;
-      float* p = out + (size_t)g * r + c;
-      *p = accumulate ? *p + acc[i][j] : acc[i][j];
+      out[(size_t)g * r + c] = acc[i][j];
     }
   }
-}
-
-template <int TR>
-__device__ inline void zero(float (&acc)[4][TR]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < TR; ++j) acc[i][j] = 0.0f;
 }
 
 // B2. Block (x, y, z): row tile x, column chunk y of R, column-tile split z.
@@ -233,8 +200,7 @@ kmv_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
   __syncthreads();
   if (threadIdx.x < T) norms(s.as, d, s.a2, threadIdx.x);
 
-  float acc[4][TR];
-  zero(acc);
+  float acc[4][TR] = {};
   for (int jt = jt0; jt < jt1; ++jt) {
     const int col0 = jt * T;
     __syncthreads();  // the previous tile's readers are done with bs / ks
@@ -243,42 +209,9 @@ kmv_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
     if (threadIdx.x < T) norms(s.bs, d, s.b2, threadIdx.x);
     __syncthreads();
     build_tile<KERN>(s, d, row0, col0, n1, n2, var, noise, square != 0);
-    contract<TR>(s, v, n2, r, r0, col0, false, acc);
+    contract<TR>(s, v, n2, r, r0, col0, acc);
   }
-  store<TR>(out + (size_t)blockIdx.z * n1 * r, acc, n1, r, row0, r0, false);
-}
-
-// B3, launch k of the wavefront: block x handles tile (x, x + k).
-template <int KERN, int TR>
-__global__ void __launch_bounds__(THREADS)
-kmv_sym_kernel(const float* __restrict__ a, const float* __restrict__ v,
-               float* __restrict__ row, float* __restrict__ mirror,
-               const float* __restrict__ var_p, const float* __restrict__ noise_p,
-               int n, int d, int r, int k) {
-  extern __shared__ float4 smem4[];
-  const Smem s = carve(reinterpret_cast<float*>(smem4), d, TR);
-  const float var = *var_p, noise = *noise_p;
-  const int row0 = blockIdx.x * T;
-  const int col0 = (blockIdx.x + k) * T;
-  const int r0 = blockIdx.y * 16 * TR;
-
-  load_coords(a, n, d, row0, s.as);
-  load_coords(a, n, d, col0, s.bs);
-  __syncthreads();
-  if (threadIdx.x < T) norms(s.as, d, s.a2, threadIdx.x);
-  else if (threadIdx.x < 2 * T) norms(s.bs, d, s.b2, threadIdx.x - T);
-  __syncthreads();
-  build_tile<KERN>(s, d, row0, col0, n, n, var, noise, true);
-
-  float acc[4][TR];
-  zero(acc);
-  contract<TR>(s, v, n, r, r0, col0, false, acc);
-  store<TR>(row, acc, n, r, row0, r0, k > 0);
-  zero(acc);
-  if (k > 0) contract<TR>(s, v, n, r, r0, row0, true, acc);
-  // k == 0: the diagonal tile is its own mirror; the block that owns
-  // mirror[i] in this launch starts it at zero
-  store<TR>(mirror, acc, n, r, k > 0 ? col0 : row0, r0, k > 0);
+  store<TR>(out + (size_t)blockIdx.z * n1 * r, acc, n1, r, row0, r0);
 }
 
 // out[e] = sum_z parts[z][e], z ascending: the split sum in a fixed order.
@@ -291,14 +224,6 @@ __global__ void kmv_reduce_kernel(const float* __restrict__ parts,
     for (int z = 0; z < splits; ++z) acc += parts[(size_t)z * count + e];
     out[e] = acc;
   }
-}
-
-// row[e] += mirror[e]
-__global__ void add_kernel(float* __restrict__ row, const float* __restrict__ mirror,
-                           size_t count) {
-  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count;
-       e += (size_t)gridDim.x * blockDim.x)
-    row[e] += mirror[e];
 }
 
 inline int elementwise_blocks(size_t count) {
@@ -329,28 +254,6 @@ cudaError_t launch_dense(const float* a, const float* b, const float* v, float* 
   return cudaGetLastError();
 }
 
-template <int KERN, int TR>
-cudaError_t launch_sym(const float* a, const float* v, float* out, float* mirror,
-                       const float* var, const float* noise, int n, int d, int r,
-                       cudaStream_t stream) {
-  const size_t bytes = smem_floats(d, TR) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kmv_sym_kernel<KERN, TR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
-  if (err != cudaSuccess) return err;
-  const int nb = (n + T - 1) / T;
-  const int rchunks = (r + 16 * TR - 1) / (16 * TR);
-  for (int k = 0; k < nb; ++k) {
-    kmv_sym_kernel<KERN, TR><<<dim3(nb - k, rchunks), THREADS, bytes, stream>>>(
-        a, v, out, mirror, var, noise, n, d, r, k);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  const size_t count = (size_t)n * r;
-  add_kernel<<<elementwise_blocks(count), THREADS, 0, stream>>>(out, mirror, count);
-  return cudaGetLastError();
-}
-
 // Columns per thread: 1 (R <= 16), 4 (R <= 64) or 16 (256 columns a block).
 template <int KERN>
 cudaError_t dense_tr(const float* a, const float* b, const float* v, float* out,
@@ -361,15 +264,6 @@ cudaError_t dense_tr(const float* a, const float* b, const float* v, float* out,
   if (r <= 64)
     return launch_dense<KERN, 4>(a, b, v, out, parts, var, noise, n1, n2, d, r, square, splits, st);
   return launch_dense<KERN, 16>(a, b, v, out, parts, var, noise, n1, n2, d, r, square, splits, st);
-}
-
-template <int KERN>
-cudaError_t sym_tr(const float* a, const float* v, float* out, float* mirror,
-                   const float* var, const float* noise, int n, int d, int r,
-                   cudaStream_t st) {
-  if (r <= 16) return launch_sym<KERN, 1>(a, v, out, mirror, var, noise, n, d, r, st);
-  if (r <= 64) return launch_sym<KERN, 4>(a, v, out, mirror, var, noise, n, d, r, st);
-  return launch_sym<KERN, 16>(a, v, out, mirror, var, noise, n, d, r, st);
 }
 
 }  // namespace
@@ -397,28 +291,6 @@ int gpras_kmv_dense(int kern, const void* a, const void* b, const void* v, void*
     case MATERN32: return dense_tr<MATERN32>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
     case MATERN52: return dense_tr<MATERN52>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
     case EXPONENTIAL: return dense_tr<EXPONENTIAL>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
-// out (n, r) = (K(a, a) + noise I) @ v from upper-triangle tiles; mirror is
-// scratch of n * r floats. Same layout rules as gpras_kmv_dense.
-int gpras_kmv_sym(int kern, const void* a, const void* v, void* out, void* mirror,
-                  const void* var, const void* noise, int n, int d, int r,
-                  void* stream) {
-  const float* A = static_cast<const float*>(a);
-  const float* V = static_cast<const float*>(v);
-  float* O = static_cast<float*>(out);
-  float* M = static_cast<float*>(mirror);
-  const float* VAR = static_cast<const float*>(var);
-  const float* NZ = static_cast<const float*>(noise);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (kern) {
-    case RBF: return sym_tr<RBF>(A, V, O, M, VAR, NZ, n, d, r, st);
-    case MATERN12: return sym_tr<MATERN12>(A, V, O, M, VAR, NZ, n, d, r, st);
-    case MATERN32: return sym_tr<MATERN32>(A, V, O, M, VAR, NZ, n, d, r, st);
-    case MATERN52: return sym_tr<MATERN52>(A, V, O, M, VAR, NZ, n, d, r, st);
-    case EXPONENTIAL: return sym_tr<EXPONENTIAL>(A, V, O, M, VAR, NZ, n, d, r, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,17 +13,22 @@ bounds it on an H100 and how the design answers it):
   too few row tiles to fill the card (the posterior mean of a 64- or
   256-query bucket) the column sweep is split across blocks and the partial
   sums are added in a fixed order by a second pass.
-- ``kmv_sym`` (B3, ``csrc/kmv.cu``) replaces ``_kmv_sym_body``: square only,
-  upper-triangle tiles, each built once and contracted twice, walked as a
-  diagonal wavefront of launches so every accumulator has one writer per
-  launch (deterministic, no atomics).
+- ``kmv_sym`` (B3, ``csrc/kmv_sym.cu``) replaces ``_kmv_sym_body``: square
+  only, the plan from ``kmv_sym_plan``. Above 16 right-hand sides a block
+  sweeps the whole square for 128 output rows with its accumulators in
+  registers, building covariance entries straight into tensor-core fragments
+  and contracting them in 3xTF32; up to 16 each upper-triangle tile is built
+  once and contracted twice, its mirror half written to a slot of its own
+  and the slots added in a fixed order. Deterministic, no atomics.
 - ``kgrad_dense`` (B4) and ``kgrad_sym`` (B5, ``csrc/kgrad.cu``) replace
   ``_kgrad_body`` and ``_kgrad_sym_body``: sum_ij Kbar_ij dK_ij/dtheta for
   the rank-(m+1) training cotangent, per-tile partial sums added in a fixed
   order in float64. ``kgrad`` picks between them by the reference's rule.
 
-All compute in plain fp32 (no TF32 anywhere). Inputs are pre-scaled by the
-ARD lengthscales here, outside the kernels, as the reference does.
+All compute in plain fp32, except B3's 3xTF32 contraction above 16
+right-hand sides (hi/lo split of both operands, ~2^-22 per product; the one
+use of TF32 in the package). Inputs are pre-scaled by the ARD lengthscales
+here, outside the kernels, as the reference does.
 
 Each kernel has a plain PyTorch version beside it (``gram_plain``,
 ``kmv_plain``, ``kgrad_plain``); a wrapper uses it only when its tensors lie
@@ -32,12 +37,15 @@ is no fallback. Each wrapper counts its kernel launches in a plain integer
 attribute (``gram.launches``, ``kmv_dense.launches``, ...): one per wrapper
 call that runs its kernel. A ``gram`` call is one CUDA grid; a ``kgrad_*``
 call two (the tiles, then the fixed-order sum); a ``kmv_dense`` call is one
-grid, or two when it splits its sweep; a ``kmv_sym`` call on N rows is
-ceil(N / 64) wavefront grids plus one grid that adds the mirror (769 at
-N = 49,152).
+grid, or two when it splits its sweep; a ``kmv_sym`` call two or three
+whatever N (``kmv_sym_plan(...).grids``), and ``kmv_sym.grids`` adds up the
+grids its calls launched as the kernel's entry point counts them.
 """
 
 from __future__ import annotations
+
+import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -150,13 +158,86 @@ def kmv_dense(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
 kmv_dense.launches = 0
 
 
+#: above this many right-hand sides B3 contracts on the tensor cores (3xTF32)
+SYM_MAX_R = 16
+SYM_ROWS = 128   # B3, tensor-core build: output rows per block; N is padded to it
+SYM_STAGE = 32   # B3, tensor-core build: column points per shared-memory stage
+
+
+class SymPlan(NamedTuple):
+    """How ``kmv_sym`` runs one call (csrc/kmv_sym.cu reads the same fields).
+
+    ``tc``: the tensor-core build, else the symmetric one. ``width``: n-tiles
+    of 8 columns per block (tc: 8 or 32), or columns per pass (symmetric: 1
+    or 4). ``chunks``: blocks along R. ``splits``: blocks along the column
+    sweep (tc only; their partial sums are added in a fixed order).
+    ``npad``, ``dp``: N padded to 128 rows, D to a multiple of 8 (zeros).
+    Scratch sizes in float32 elements: ``vbuf``, V laid out for the build;
+    ``parts``, the symmetric build's slots (one 64 x R slot per
+    upper-triangle tile i <= j of the ``nb`` row tiles) or the split partial
+    sums (splits x N x R, 0 without a split). ``grids``: CUDA grids per
+    call."""
+    tc: bool
+    width: int
+    chunks: int
+    splits: int
+    npad: int
+    dp: int
+    nb: int
+    vbuf: int
+    parts: int
+    grids: int
+
+
+def _tc_plan(n: int, d: int, r: int, splits: int) -> SymPlan:
+    """The tensor-core build's plan at any R, its sweep split over ``splits``
+    blocks (``kmv_sym_plan`` picks it above SYM_MAX_R)."""
+    npad = -(-n // SYM_ROWS) * SYM_ROWS
+    width = 8 if r <= 64 else 32
+    chunks = -(-r // (8 * width))
+    return SymPlan(True, width, chunks, splits, npad, -(-d // 8) * 8, -(-n // TILE),
+                   chunks * npad * 16 * width, splits * n * r if splits > 1 else 0,
+                   2 + (splits > 1))
+
+
+def kmv_sym_plan(n: int, d: int, r: int, sms: int = 132) -> SymPlan:
+    """The plan of one ``kmv_sym`` call on x (n, d), v (n, r) on a card of
+    ``sms`` SMs (132: H100): the tensor-core build above SYM_MAX_R
+    right-hand sides, else the symmetric one. The tensor-core build splits
+    its sweep in two when its blocks would fill fewer than two waves of the
+    card's resident blocks (2 an SM for the 64-column build, 1 for the
+    256-column one: their launch bounds) and each half keeps 8 stages."""
+    if r > SYM_MAX_R:
+        plan = _tc_plan(n, d, r, 1)
+        blocks = plan.npad // SYM_ROWS * plan.chunks
+        resident = sms * (2 if plan.width == 8 else 1)
+        if blocks < 2 * resident and plan.npad // SYM_STAGE >= 16:
+            return _tc_plan(n, d, r, 2)
+        return plan
+    npad = -(-n // SYM_ROWS) * SYM_ROWS
+    nb = -(-n // TILE)
+    width = 1 if r == 1 else 4
+    chunks = -(-r // width)
+    return SymPlan(False, width, chunks, 1, npad, -(-d // 8) * 8, nb, chunks * npad * width,
+                   nb * (nb + 1) // 2 * TILE * r, 3)
+
+
 def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
             noise: Tensor | float | None = None) -> Tensor:
-    """(K(x, x) + noise I) @ v through kernel B3 (upper-triangle tiles).
+    """(K(x, x) + noise I) @ v through kernel B3, as ``kmv_sym_plan`` plans it.
 
     x (N, D), v (N, R) -> (N, R) float32."""
     if _on_cpu(x, v):
         return kmv_plain(kernel, params, x, v, noise=noise)
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    return _kmv_sym_run(kmv_sym_plan(x.shape[0], x.shape[1], v.shape[1], sms), kernel, params,
+                        x, v, noise)
+
+
+def _kmv_sym_run(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
+                 noise: Tensor | float | None) -> Tensor:
+    """B3 on CUDA tensors through ``plan`` (``kmv_sym``'s, or another build
+    of the same function that examples/torch_kmv_sym_timing.py times)."""
     from gpras_tpu_torch.ops._build import library
 
     if x.shape[0] != v.shape[0]:
@@ -166,18 +247,27 @@ def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
     kid, a, var, nz = _kernel_args(kernel, params, noise, (x,), (v,))
     n, d = a.shape
     r = v.shape[1]
-    out = torch.empty((n, r), dtype=torch.float32, device=v.device)
-    mirror = torch.empty_like(out)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = library().gpras_kmv_sym(kid, a.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                 mirror.data_ptr(), var.data_ptr(), nz.data_ptr(),
-                                 n, d, r, stream)
+    dev = v.device
+    out = torch.empty((n, r), dtype=torch.float32, device=dev)
+    xp = torch.empty(plan.npad * plan.dp, dtype=torch.float32, device=dev)
+    nrm = torch.empty(plan.npad, dtype=torch.float32, device=dev)
+    vbuf = torch.empty(plan.vbuf, dtype=torch.float32, device=dev)
+    parts = torch.empty(plan.parts, dtype=torch.float32, device=dev) if plan.parts else out
+    grids = ctypes.c_int(0)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = library().gpras_kmv_sym(kid, a.data_ptr(), v.data_ptr(), out.data_ptr(), xp.data_ptr(),
+                                 nrm.data_ptr(), vbuf.data_ptr(), parts.data_ptr(),
+                                 var.data_ptr(), nz.data_ptr(), n, d, r, plan.npad, plan.dp,
+                                 plan.width, int(plan.tc), plan.splits, ctypes.byref(grids),
+                                 stream)
     kmv_sym.launches += 1
+    kmv_sym.grids += grids.value
     _check(rc, "kmv_sym")
     return out
 
 
 kmv_sym.launches = 0
+kmv_sym.grids = 0  # CUDA grids those calls launched, counted by the kernel's entry point
 
 
 # ------------------------------------------------------------------ B1: Gram

@@ -13,14 +13,16 @@ import torch
 
 from gpras_tpu_torch.ops import fused_gram
 from gpras_tpu_torch.ops import kernels as K
+from torch_parity import TF32X3_TOL, tf32_round
 
 pytestmark = pytest.mark.cuda
 
-# The kernels contract in plain fp32 FMA; the reference is the plain version
-# in float64 on the same fp32 inputs. fp32 rounding of the tile entries and
-# of sums over a few thousand terms stays near 1e-6 of the result's scale;
-# 1e-4 * max|want| leaves ample margin and still catches a wrong tile,
-# mask or mirror (errors of order one entry, ~1e-2 of the scale).
+# The kernels contract in fp32 FMA (B3 above 16 right-hand sides in 3xTF32,
+# ~2^-22 per product); the reference is the plain version in float64 on the
+# same fp32 inputs. Rounding of the tile entries and of sums over a few
+# thousand terms stays near 1e-6 of the result's scale; 1e-4 * max|want|
+# leaves ample margin and still catches a wrong tile, mask or mirror (errors
+# of order one entry, ~1e-2 of the scale).
 TOL = 1e-4
 
 
@@ -61,10 +63,15 @@ def test_kmv_dense_matches_plain(device, kernel, r):
     assert err <= TOL * want.abs().max().item(), err
 
 
-@pytest.mark.parametrize("r", [1, 7, 33, 64, 70, 300])
+# B3's builds and their edges: the symmetric build up to R = 16 (1 or 4
+# columns a pass, ragged passes at 7), the tensor-core build above (64
+# columns a block up to R = 64, 256 above; ragged at 17, 65 and 300, two
+# blocks along R at 300); N ragged (2003) and smaller than one tile (50)
+@pytest.mark.parametrize("n", [2003, 50])
+@pytest.mark.parametrize("r", [1, 7, 16, 17, 64, 65, 256, 300])
 @pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
-def test_kmv_sym_matches_plain(device, kernel, r):
-    params, x, _, v = _inputs(device, 2003, 2003, 5, r, seed=10 + r)
+def test_kmv_sym_matches_plain(device, kernel, r, n):
+    params, x, _, v = _inputs(device, n, n, 5, r, seed=10 + r)
     got = fused_gram.kmv_sym(kernel, params, x, v, noise=torch.tensor(0.3, device=device))
     want = fused_gram.kmv_plain(kernel, _f64(params), x.double(), v.double(), noise=0.3)
     dense = fused_gram.kmv_dense(kernel, params, x, v, noise=0.3)
@@ -74,11 +81,85 @@ def test_kmv_sym_matches_plain(device, kernel, r):
     assert (dense.double() - want).abs().max().item() <= TOL * scale
 
 
-def test_kmv_sym_is_deterministic(device):
-    params, x, _, v = _inputs(device, 3001, 3001, 8, 33, seed=3)
+# D above 8: both builds then read the coordinates in runs of 8 past the
+# first (the tensor-core build's rows from device memory, the symmetric
+# build's from shared memory). 128 is the most the wrappers take (every build
+# then fits its shared memory, 169 KB at most); the coordinates are scaled by
+# sqrt(4 / D) so that r2 stays O(1) and the off-diagonal entries count.
+@pytest.mark.parametrize("d", [9, 16, 128])
+@pytest.mark.parametrize("r", [1, 7, 64, 300])
+def test_kmv_sym_matches_plain_wide_inputs(device, r, d):
+    params, x, _, v = _inputs(device, 2003, 2003, d, r, seed=60 + d + r)
+    x = (x * (4.0 / d) ** 0.5).contiguous()
+    got = fused_gram.kmv_sym("Matern52", params, x, v, noise=torch.tensor(0.3, device=device))
+    want = fused_gram.kmv_plain("Matern52", _f64(params), x.double(), v.double(), noise=0.3)
+    torch.cuda.synchronize()
+    offdiag = (want - (torch.exp(params["log_variance"]).double() + 0.3) * v.double())
+    assert offdiag.abs().max().item() > 0.1 * want.abs().max().item()
+    assert (got.double() - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+def test_kmv_sym_raises_past_128_dimensions(device):
+    params, x, _, v = _inputs(device, 300, 300, 129, 4, seed=5)
+    with pytest.raises(ValueError, match="input dimensions"):
+        fused_gram.kmv_sym("RBF", params, x, v, noise=0.1)
+
+
+# the grids a call launches, as the kernel's entry point counts them, are the
+# plan's: prep, the build, and a fixed-order sum where the plan has one
+@pytest.mark.parametrize("n", [50, 2003])
+@pytest.mark.parametrize("r", [1, 16, 17, 64, 256])
+def test_kmv_sym_launches_the_planned_grids(device, r, n):
+    params, x, _, v = _inputs(device, n, n, 8, r, seed=70 + r)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    before = (fused_gram.kmv_sym.launches, fused_gram.kmv_sym.grids)
+    fused_gram.kmv_sym("Matern52", params, x, v, noise=0.1)
+    assert (fused_gram.kmv_sym.launches - before[0], fused_gram.kmv_sym.grids - before[1]) == \
+        (1, fused_gram.kmv_sym_plan(n, 8, r, sms).grids)
+
+
+@pytest.mark.parametrize("r", [1, 64, 256])
+def test_kmv_sym_is_deterministic(device, r):
+    params, x, _, v = _inputs(device, 3001, 3001, 8, r, seed=3)
     a = fused_gram.kmv_sym("Matern52", params, x, v, noise=0.1)
     b = fused_gram.kmv_sym("Matern52", params, x, v, noise=0.1)
     assert torch.equal(a, b)
+
+
+# 3xTF32, proven: the kernel's error against float64 stays under a bound that
+# one TF32 pass (K and V rounded to TF32, products summed in float64) misses
+# on the same inputs
+@pytest.mark.parametrize("r", [64, 256])
+def test_kmv_sym_contracts_in_3xtf32(device, r):
+    params, x, _, v = _inputs(device, 2003, 2003, 8, r, seed=40 + r)
+    got = fused_gram.kmv_sym("Matern52", params, x, v, noise=0.3)
+    want = fused_gram.kmv_plain("Matern52", _f64(params), x.double(), v.double(), noise=0.3)
+    kmat = fused_gram.gram_plain("Matern52", params, x, noise=0.3)
+    one_pass = tf32_round(kmat).double() @ tf32_round(v).double()
+    torch.cuda.synchronize()
+    scale = want.abs().max().item()
+    err = (got.double() - want).abs().max().item()
+    err_one = (one_pass - want).abs().max().item()
+    assert err <= TF32X3_TOL * scale < err_one, (err / scale, err_one / scale)
+
+
+def test_sqrt_rn_is_sqrtf_bit_for_bit(device):
+    """The covariance tails' branch-free square root (csrc/stationary.cuh)
+    against torch.sqrt (IEEE, correctly rounded) over every float32 in
+    [1e-36, 2^60], the range it promises."""
+    from gpras_tpu_torch.ops._build import library
+
+    lo = int(torch.tensor([1e-36]).view(torch.int32))
+    hi = int(torch.tensor([2.0 ** 60]).view(torch.int32))
+    stream = torch.cuda.current_stream(device).cuda_stream
+    mismatches = 0
+    for b0 in range(lo, hi + 1, 1 << 27):
+        x = torch.arange(b0, min(hi + 1, b0 + (1 << 27)), dtype=torch.int64,
+                         device=device).to(torch.int32).view(torch.float32)
+        out = torch.empty_like(x)
+        assert library().gpras_sqrt_rn(x.data_ptr(), out.data_ptr(), x.numel(), stream) == 0
+        mismatches += int((out.view(torch.int32) != torch.sqrt(x).view(torch.int32)).sum())
+    assert mismatches == 0
 
 
 # B1: ragged shapes (masked edges) and whole tiles (64 x 128), cross and square

@@ -26,3 +26,16 @@ def np_params(params) -> dict[str, np.ndarray]:
     """A parameter dict of either package -> writable numpy arrays."""
     return {k: np.array(v.cpu() if isinstance(v, torch.Tensor) else v)
             for k, v in params.items()}
+
+
+#: B3's 3xTF32 contraction against float64, relative to max |result|: the
+#: split misses ~2^-22 of each product and the fp32 sums add ~1e-6, while one
+#: TF32 pass (2^-11 per operand) leaves ~1e-4 (tests/test_torch_kmv_tf32.py)
+TF32X3_TOL = 2e-5
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 -> the nearest TF32 value (10 mantissa bits), ties away from
+    zero: cvt.rna.tf32.f32 in plain PyTorch, on the low 13 bits."""
+    bits = t.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
