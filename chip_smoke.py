@@ -13,8 +13,10 @@ every CUDA kernel on those paths:
    shapes the paths give them, with kernel, plain and bound times: the Gram
    (B1), the covariance matvecs (B2, B3), the gradient contraction (B4, B5);
    B2 and B3 also beside torch.matmul on a Gram prebuilt by B1 (fp32, no
-   TF32: the library call a user could make instead), and B3's CUDA grids
-   per call as its entry point counts them, held to the wrapper's plan
+   TF32: the library call a user could make instead), B3's CUDA grids
+   per call as its entry point counts them, held to the wrapper's plan, and
+   for B2, B4 and B5 the time of the CUDA grids alone (many launches of the
+   prepared call between two events) beside the whole wrapper call
 3. serving: write a checkpoint and two EOF preprocessors with the port, load
    them in PosteriorPredictor(device="cuda"), answer two LF-field requests,
    and show through the launch counters that B2 and B3 ran (and how many
@@ -74,8 +76,11 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = 3) -> float:
-    """Median device time of ``fn`` in ms (CUDA events), after one warm-up."""
+def cuda_ms(fn, reps: int = 3, calls: int = 1) -> float:
+    """Median device time per call of ``fn`` in ms (CUDA events around
+    ``calls`` calls), after one warm-up. One call per event pair includes
+    the host's work between the first and the last launch of the call; many
+    calls per pair give the device's time per call once its queue is full."""
     import torch
 
     fn()
@@ -85,10 +90,11 @@ def cuda_ms(fn, reps: int = 3) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(calls):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
+        times.append(start.elapsed_time(end) / calls)
     return statistics.median(times)
 
 
@@ -163,13 +169,14 @@ def kmv_bound_fp32(n1: int, n2: int, r: int, sym: bool) -> float:
     return bound(flops + tc_flops / 3, nbytes)[0]
 
 
-def kgrad_work(n: int) -> tuple[float, float]:
+def kgrad_work(n: int, d: int = D, m: int = M) -> tuple[float, float]:
     """The function's work, whichever body computes it (B4 and B5 compute the
-    same sum). dK is symmetric, so r2 (3D), the lengthscale weights (3D), f
+    same sum). dK is symmetric, so r2 (3d), the lengthscale weights (3d), f
     and f' (~12) and the variance and weight products (~7) are needed once
     per pair i <= j, n(n+1)/2 pairs, with the folded cotangent
-    Kbar_ij + Kbar_ji (two rank-m dots, 4m) on each."""
-    return n * (n + 1) / 2 * (6 * D + 4 * M + 19), 4.0 * n * (D + 2 * M + 1)
+    Kbar_ij + Kbar_ji (two rank-m dots, 4m) on each. All of it fp32 on the
+    CUDA cores: no kernel here puts the cotangent on the tensor cores."""
+    return n * (n + 1) / 2 * (6 * d + 4 * m + 19), 4.0 * n * (d + 2 * m + 1)
 
 
 def flat(out):
@@ -208,20 +215,22 @@ def phase_kernels():
         kmat = fused_gram.gram(kernel, params, x1, x2, noise=noise)
         return lambda: torch.matmul(kmat, v)
 
-    def inputs(n1, n2, r):
+    def inputs(n1, n2, r, d=D):
+        scales = ([1.0, 0.6, 0.35] + [10.0] * d)[:d]
         params = {"log_variance": torch.tensor(0.0, device=dev),
-                  "log_lengthscales": torch.log(
-                      torch.tensor([1.0, 0.6, 0.35] + [10.0] * (D - 3), device=dev))}
-        x1 = torch.randn(n1, D, generator=gen).to(dev)
-        x2 = torch.randn(n2, D, generator=gen).to(dev)
+                  "log_lengthscales": torch.log(torch.tensor(scales, device=dev))}
+        x1 = torch.randn(n1, d, generator=gen).to(dev)
+        x2 = torch.randn(n2, d, generator=gen).to(dev)
         v = torch.randn(n2, r, generator=gen).to(dev)
         return params, x1, x2, v
 
-    def check(name, kernel, shape, run, want, run_plain32=None, work=None, library=None):
+    def check(name, kernel, shape, run, want, run_plain32=None, work=None, library=None,
+              grids=None):
         """``want``: the float64 plain result, or a function of the kernel's
         result that returns (max error, scale). ``library``: a function that
         sets up the library call (untimed) and returns it, to be timed beside
-        the kernel."""
+        the kernel. ``grids``: the prepared call's launch function (the CUDA
+        grids without the wrapper), timed many per event pair."""
         got = run()
         if callable(want):
             err, scale = want(got)
@@ -235,17 +244,30 @@ def phase_kernels():
                f"(scale {scale:.3e}) {'ok' if ok else 'FAIL'}"
         if run_plain32 is not None:
             ms, plain_ms = cuda_ms(run), cuda_ms(run_plain32)
+            if ms < 1.0:  # a call this short varies with the host: more repetitions
+                ms = cuda_ms(run, reps=21)
             bound_ms, bound_by = bound(*work)
-            library_ms = None
+            calls = 200 if ms < 1.0 else 5
+            grids_ms = None if grids is None else cuda_ms(grids, calls=calls)
+            library_ms = library_queued_ms = None
             if library is not None:
-                library_ms = cuda_ms(library())
+                call = library()
+                library_ms = cuda_ms(call, reps=21 if ms < 1.0 else 3)
+                if grids is not None:
+                    library_queued_ms = cuda_ms(call, calls=calls)
+                del call
                 torch.cuda.empty_cache()
-            line += f"  kernel {ms:.3f} ms  plain {plain_ms:.3f} ms  " \
-                    f"bound {bound_ms:.3f} ms ({bound_by})"
+            line += f"  kernel {ms:.4f} ms  plain {plain_ms:.3f} ms  " \
+                    f"bound {bound_ms:.4f} ms ({bound_by})"
+            if grids_ms is not None:
+                line += f"  grids alone {grids_ms:.4f} ms ({calls} launches per event pair)"
             if library_ms is not None:
-                line += f"  library {library_ms:.3f} ms"
+                line += f"  library {library_ms:.4f} ms"
+            if library_queued_ms is not None:
+                line += f" ({library_queued_ms:.4f} ms at {calls} per pair)"
             row = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-                   "bound_by": bound_by, "library_ms": library_ms}
+                   "bound_by": bound_by, "library_ms": library_ms, "grids_ms": grids_ms,
+                   "library_queued_ms": library_queued_ms}
             report.setdefault(name, {})[(kernel, shape)] = row
         log(line)
         if not ok:
@@ -279,18 +301,33 @@ def phase_kernels():
                                          None if n2 else 1e-2, got),
                   lambda: fused_gram.gram_plain(kernel, params, x1, x2, noise=nz),
                   gram_work(n1, n2 or n1))
-        # B2, at the serving shapes: the posterior mean of a 64- or 256-query
-        # bucket; the library call is torch.matmul on K(x1, x2) built by B1
-        for (n1, n2, r, timed) in [(4999, 3001, 1, False), (4999, 3001, 7, False),
-                                   (64, N, 1, True), (256, N, 1, True)]:
-            params, x1, x2, v = inputs(n1, n2, r)
-            check("kmv_dense", kernel, f"{n1}x{n2} R={r}",
-                  lambda: fused_gram.kmv_dense(kernel, params, x1, v, x2=x2),
+        # B2. Its rows design (R <= 16, few row tiles): 1 to 300 queries, 1, 7
+        # and 16 right-hand sides, cross (3,001 points: 47 stages, the last
+        # ragged) and square with noise on the diagonal; its tiled design at
+        # R = 33; then the serving shapes, the posterior mean of a 64- or
+        # 256-query bucket, timed: the whole wrapper call, the grids alone,
+        # and the library call, torch.matmul on K(x1, x2) built by B1
+        shapes = [(n1, n2, r, False) for n1 in (1, 17, 64, 256, 300) for r in (1, 7, 16)
+                  for n2 in (3001, None)]
+        shapes += [(4999, 3001, 1, False), (4999, 3001, 7, False), (4999, 3001, 33, False),
+                   (64, N, 1, True), (256, N, 1, True)]
+        for (n1, n2, r, timed) in shapes:
+            params, x1, x2, v = inputs(n1, n2 or n1, r)
+            x2 = None if n2 is None else x2
+            nz = None if n2 else torch.tensor(1e-2, device=dev)
+            planned = fused_gram.kmv_dense_plan(n1, n2 or n1, r, sms)
+            if planned.rows != (r <= 16):
+                raise AssertionError(f"kmv_dense {n1}x{n2 or n1} R={r}: unexpected {planned}")
+            check("kmv_dense", kernel, f"{n1}x{n2 or n1} R={r}" + ("" if n2 else " +noise"),
+                  lambda: fused_gram.kmv_dense(kernel, params, x1, v, x2=x2, noise=nz),
                   fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(),
-                                       x2=x2.double()),
+                                       x2=None if x2 is None else x2.double(),
+                                       noise=None if n2 else 1e-2),
                   (lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2)) if timed else None,
-                  kmv_work(n1, n2, r, False),
-                  library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v))
+                  kmv_work(n1, n2 or n1, r, False),
+                  library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v),
+                  grids=fused_gram._kmv_dense_cuda(kernel, params, x1, v, x2, nz)[0]
+                  if timed else None)
             if timed:
                 fp32_bounds[f"kmv_dense {kernel} {n1}x{n2} R={r}"] = kmv_bound_fp32(n1, n2, r,
                                                                                      False)
@@ -325,19 +362,30 @@ def phase_kernels():
                 report["kmv_sym"][(kernel, f"{n}x{n} R={r}")]["grids_per_call"] = grids
                 fp32_bounds[f"kmv_sym {kernel} {n}x{n} R={r}"] = kmv_bound_fp32(n, n, r, True)
         # B4 (the Hutchinson backward up to 3,584 points; 3,072 is phase 7's
-        # path) and B5 (above it; 49,152 is the training path), m = 16 probes
-        for n, sym in [(3001, False), (3072, False), (3584, False), (5003, True), (N, True)]:
-            params, x, _, _ = inputs(n, n, 1)
-            w = torch.randn(n, M, generator=gen).to(dev)
-            z = (2 * torch.randint(0, 2, (n, M), generator=gen) - 1).float().to(dev)
+        # path) and B5 (above it; 49,152 is the training path): 1, 7 and 16
+        # probes, one input dimension and more than eight, every seventh point
+        # a copy of its neighbour (coincident points: r2 == 0 off the
+        # diagonal). Timed at the two path shapes only
+        shapes = [(3001, False, D, M), (3072, False, D, M), (3584, False, D, M)]
+        shapes += [(n, True, D, m) for n in (3585, 5003, N) for m in (1, 7, M)]
+        shapes += [(5003, True, 1, M), (5003, True, 11, M)]
+        for n, sym, d, m in shapes:
+            params, x, _, _ = inputs(n, n, 1, d)
+            x[1::7] = x[0::7][:x[1::7].shape[0]]
+            w = torch.randn(n, m, generator=gen).to(dev)
+            z = (2 * torch.randint(0, 2, (n, m), generator=gen) - 1).float().to(dev)
             alpha = torch.randn(n, generator=gen).to(dev)
             fn = fused_gram.kgrad_sym if sym else fused_gram.kgrad_dense
-            check(fn.__name__, kernel, f"N={n} m={M}",
-                  lambda: fn(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+            timed = (n, d, m) in ((3072, D, M), (N, D, M))
+            check(fn.__name__, kernel, f"N={n} m={m}" + ("" if d == D else f" D={d}"),
+                  lambda: fn(kernel, params, x, w, z, alpha, 1.3, 1.0 / m),
                   fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(),
-                                         z.double(), alpha.double(), 1.3, 1.0 / M),
-                  lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
-                  kgrad_work(n))
+                                         z.double(), alpha.double(), 1.3, 1.0 / m),
+                  (lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / m))
+                  if timed else None,
+                  kgrad_work(n, d, m),
+                  grids=fused_gram._kgrad_cuda(sym, kernel, params, x, w, z, alpha, 1.3,
+                                               1.0 / m)[0] if timed else None)
         torch.cuda.empty_cache()
     return report, fp32_bounds
 
@@ -741,8 +789,9 @@ def main() -> int:
                            "gpras_tpu/ops/pallas_gram.py:152 (_kmv_sym_body, pallas_kmv :376)"),
                "kgrad_dense": ("gpras_tpu_torch/csrc/kgrad.cu",
                                "gpras_tpu/ops/pallas_gram.py:534 (_kgrad_body, pallas_kgrad :701)"),
-               "kgrad_sym": ("gpras_tpu_torch/csrc/kgrad.cu",
-                             "gpras_tpu/ops/pallas_gram.py:606 (_kgrad_sym_body, pallas_kgrad :701)")}
+               "kgrad_sym": ("gpras_tpu_torch/csrc/kgrad_sym.cu",
+                             "gpras_tpu/ops/pallas_gram.py:606 "
+                             "(_kgrad_sym_body, pallas_kgrad :701)")}
     kernels = []
     for name in ("gram", "kmv_dense", "kmv_sym", "kgrad_dense", "kgrad_sym"):
         row = report[name][path_shape[name]]
@@ -751,7 +800,9 @@ def main() -> int:
         # call in at_checked_shapes). library_ms: torch.matmul on a Gram prebuilt
         # by B1 for the matvecs B2 and B3; null for B1, B4 and B5, which no
         # PyTorch call computes (a stationary Gram, a covariance-derivative
-        # contraction)
+        # contraction). ms: the whole wrapper call, one per event pair;
+        # grids_ms (B2, B4, B5): its CUDA grids alone, many launches per pair,
+        # and library_queued_ms the library call timed the same way
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": launches[name], **row,
                         "shape": " ".join(path_shape[name]),

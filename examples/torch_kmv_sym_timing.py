@@ -51,8 +51,9 @@ def cuda_ms(fn, reps: int) -> float:
     return sorted(times)[len(times) // 2]
 
 
-def sass_report(kernel: str) -> None:
-    """Registers, spills and the SASS opcode mix of B3's kernels for ``kernel``."""
+def sass_report(kernel: str, names: tuple[str, ...] = ("kmv_tc", "kmv_sym_tiles")) -> None:
+    """Registers, spills and the SASS opcode mix of the kernels whose names
+    contain one of ``names`` (B3's by default), instantiated for ``kernel``."""
     from gpras_tpu_torch.ops import _build
 
     path, log = _build.build()
@@ -62,7 +63,7 @@ def sass_report(kernel: str) -> None:
     for line in log.splitlines():
         if "Compiling entry function" in line:
             name = line.split("'")[1]
-        elif name and tag in name and ("kmv_tc" in name or "kmv_sym_tiles" in name) and (
+        elif name and tag in name and any(w in name for w in names) and (
                 "registers" in line or "spill" in line):
             print(f"[ptxas] {name[40:90]}: {line.split(':', 1)[-1].strip()}")
     cuobjdump = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
@@ -70,11 +71,11 @@ def sass_report(kernel: str) -> None:
                           check=True).stdout
     for func in re.split(r"\n\s+Function : ", sass)[1:]:
         fname = func.split("\n", 1)[0]
-        if tag not in fname or not ("kmv_tc" in fname or "kmv_sym_tiles" in fname):
+        if tag not in fname or not any(w in fname for w in names):
             continue
         ops = collections.Counter(
             m.group(2).split(".")[0] for m in re.finditer(
-                r"/\*[0-9a-f]{4}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", func))
+                r"/\*[0-9a-f]{4,6}\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]+)", func))
         print(f"[sass] {fname[40:90]}: {sum(ops.values())} instructions, "
               + ", ".join(f"{k} {v}" for k, v in ops.most_common(16)))
 

@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas Gram body of gpras_tpu/ops/pallas_gram.py:
 //   gram  <- _tile_body / _tile_value  (:77 / :35-74, launcher pallas_gram :268-311)
-// It writes K(a, b) from lengthscale-pre-scaled coordinates, with noise on the
-// global diagonal when the matrix is square (the training Gram K + sigma2 I).
+// It writes K(a, b) from raw coordinates, with noise on the global diagonal
+// when the matrix is square (the training Gram K + sigma2 I). A prep grid
+// first divides the coordinates by the lengthscales (hyper.cuh) into scratch:
+// dividing where the tiles stage them cost the 49,152^2 Gram 0.9 ms of 6.0
+// on an H100 80GB HBM3 at 700 W (each block would divide its 192 points
+// again), the prep grid a few microseconds.
 //
 // What bounds it on an H100: the output. At N = 49,152 (the Hutchinson
 // training forward) it stores 49,152^2 fp32 = 9.66 GB, 2.9 ms at 3.35 TB/s,
@@ -28,11 +32,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hyper.cuh"
 #include "stationary.cuh"
 
 namespace {
 
 using namespace stationary;
+using hyper::Hyper;
 
 constexpr int TM = 64;        // tile rows
 constexpr int TN = 128;       // tile columns
@@ -40,18 +46,26 @@ constexpr int THREADS = 256;  // 8 warps; warp w owns rows w + 8 i, lane l colum
 constexpr int RI = TM / 8;    // rows per thread
 constexpr int CJ = TN / 32;   // columns per thread
 
+// out[e] = x[e] / lengthscale(column of e), x (n, d) row-major.
+__global__ void gram_scale_kernel(const float* __restrict__ x, float* __restrict__ out,
+                                  const Hyper hyp, size_t count, int d) {
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < count;
+       e += (size_t)gridDim.x * blockDim.x)
+    out[e] = __fdiv_rn(x[e], hyper::lengthscale(hyp, (int)(e % d)));
+}
+
+// a, b: coordinates already divided by the lengthscales.
 template <int KERN>
 __global__ void __launch_bounds__(THREADS)
 gram_kernel(const float* __restrict__ a, const float* __restrict__ b,
-            float* __restrict__ out, const float* __restrict__ var_p,
-            const float* __restrict__ noise_p, int n1, int n2, int d, int square) {
+            float* __restrict__ out, const Hyper hyp, int n1, int n2, int d, int square) {
   extern __shared__ float smem[];
   float* as = smem;          // [d][TM] row-tile coordinates, transposed
   float* bs = as + d * TM;   // [d][TN] column-tile coordinates, transposed
   float* a2 = bs + d * TN;   // [TM] squared norms
   float* b2 = a2 + TM;       // [TN]
   const int row0 = blockIdx.y * TM, col0 = blockIdx.x * TN;
-  const float var = *var_p, noise = *noise_p;
+  const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
 
   for (int idx = threadIdx.x; idx < TM * d; idx += THREADS) {
     const int r = idx / d, c = idx - r * d, g = row0 + r;
@@ -109,15 +123,28 @@ gram_kernel(const float* __restrict__ a, const float* __restrict__ b,
   }
 }
 
+inline int scale_blocks(size_t count) {
+  const size_t blocks = (count + THREADS - 1) / THREADS;
+  return (int)(blocks < 2048 ? (blocks > 0 ? blocks : 1) : 2048);
+}
+
 template <int KERN>
-cudaError_t launch(const float* a, const float* b, float* out, const float* var,
-                   const float* noise, int n1, int n2, int d, int square, cudaStream_t st) {
+cudaError_t launch(const float* a, const float* b, float* out, float* scaled, const Hyper& hyp,
+                   int n1, int n2, int d, int square, cudaStream_t st) {
+  static size_t granted[hyper::MAX_DEVICES] = {};
   const size_t bytes = ((size_t)d * (TM + TN) + TM + TN) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(gram_kernel<KERN>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = hyper::ensure_smem(gram_kernel<KERN>, bytes, granted);
+  if (err != cudaSuccess) return err;
+  // scaled holds a / ls, then (cross only) b / ls
+  const size_t count_a = (size_t)n1 * d, count_b = square ? 0 : (size_t)n2 * d;
+  float* const sa = scaled;
+  float* const sb = square ? scaled : scaled + count_a;
+  gram_scale_kernel<<<scale_blocks(count_a), THREADS, 0, st>>>(a, sa, hyp, count_a, d);
+  if (!square) gram_scale_kernel<<<scale_blocks(count_b), THREADS, 0, st>>>(b, sb, hyp, count_b, d);
+  err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const dim3 grid((n2 + TN - 1) / TN, (n1 + TM - 1) / TM);
-  gram_kernel<KERN><<<grid, THREADS, bytes, st>>>(a, b, out, var, noise, n1, n2, d, square);
+  gram_kernel<KERN><<<grid, THREADS, bytes, st>>>(sa, sb, out, hyp, n1, n2, d, square);
   return cudaGetLastError();
 }
 
@@ -126,22 +153,25 @@ cudaError_t launch(const float* a, const float* b, float* out, const float* var,
 extern "C" {
 
 // out (n1, n2) = K(a, b) [+ noise on the diagonal when square]. a (n1, d) and
-// b (n2, d): contiguous fp32, lengthscale-pre-scaled (b == a when square).
-// var, noise: one fp32 each, in device memory.
-int gpras_gram(int kern, const void* a, const void* b, void* out, const void* var,
-               const void* noise, int n1, int n2, int d, int square, void* stream) {
+// b (n2, d): contiguous fp32, raw coordinates (b == a when square).
+// scaled: scratch of n1 * d floats, plus n2 * d when not square.
+// log_var, log_ls (d floats ls_stride apart), noise: hyper.cuh's Hyper.
+int gpras_gram(int kern, const void* a, const void* b, void* out, void* scaled, const void* log_var,
+               const void* log_ls, int ls_stride, const void* noise_p, float noise_v, int n1,
+               int n2, int d, int square, void* stream) {
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
   float* O = static_cast<float*>(out);
-  const float* VAR = static_cast<const float*>(var);
-  const float* NZ = static_cast<const float*>(noise);
+  float* S = static_cast<float*>(scaled);
+  const Hyper hyp{static_cast<const float*>(log_var), static_cast<const float*>(log_ls),
+                  ls_stride, static_cast<const float*>(noise_p), noise_v};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (kern) {
-    case RBF: return launch<RBF>(A, B, O, VAR, NZ, n1, n2, d, square, st);
-    case MATERN12: return launch<MATERN12>(A, B, O, VAR, NZ, n1, n2, d, square, st);
-    case MATERN32: return launch<MATERN32>(A, B, O, VAR, NZ, n1, n2, d, square, st);
-    case MATERN52: return launch<MATERN52>(A, B, O, VAR, NZ, n1, n2, d, square, st);
-    case EXPONENTIAL: return launch<EXPONENTIAL>(A, B, O, VAR, NZ, n1, n2, d, square, st);
+    case RBF: return launch<RBF>(A, B, O, S, hyp, n1, n2, d, square, st);
+    case MATERN12: return launch<MATERN12>(A, B, O, S, hyp, n1, n2, d, square, st);
+    case MATERN32: return launch<MATERN32>(A, B, O, S, hyp, n1, n2, d, square, st);
+    case MATERN52: return launch<MATERN52>(A, B, O, S, hyp, n1, n2, d, square, st);
+    case EXPONENTIAL: return launch<EXPONENTIAL>(A, B, O, S, hyp, n1, n2, d, square, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -1,12 +1,15 @@
 // Fused gradient contraction for Hopper (sm_90a): the exact-GP training
 // backward's sum_ij Kbar_ij dK_ij/dtheta without any (N, N) buffer.
 //
-// Replaces the two Pallas bodies of gpras_tpu/ops/pallas_gram.py's
+// Replaces the dense Pallas body of gpras_tpu/ops/pallas_gram.py's
 // pallas_kgrad (:701-791):
 //   kgrad dense (B4)     <- _kgrad_body      (:534-603, call :772)
-//   kgrad symmetric (B5) <- _kgrad_sym_body  (:606-698, call :749)
-// With a the lengthscale-pre-scaled inputs, u_ij = ||a_i - a_j||^2 and
-// K = var f(u), the cotangent is the rank-(m+1) matrix
+// and holds the first port of the symmetric body (_kgrad_sym_body :606-698),
+// one block per upper-triangle tile, which csrc/kgrad_sym.cu replaced on
+// the training path; it stays as the yardstick of
+// examples/torch_kgrad_timing.py (sym = 1 here).
+// With a the inputs divided by the lengthscales (as they are staged),
+// u_ij = ||a_i - a_j||^2 and K = var f(u), the cotangent is the rank-(m+1) matrix
 //   Kbar = gh [(1/m) W Z^T - alpha alpha^T]          (gh = g / 2)
 // built tile by tile, and the outputs are
 //   d log_variance     =      sum_ij Kbar_ij var f(u_ij)
@@ -44,22 +47,29 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hyper.cuh"
+#include "kgrad_common.cuh"
 #include "stationary.cuh"
 
 namespace {
 
 using namespace stationary;
+using hyper::Hyper;
+using kgrad_common::Cotangent;
 
 constexpr int T = 64;          // tile edge
 constexpr int THREADS = 256;   // 16 x 16 threads, 4 x 4 entries each
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_D = 128;
 
-// Stage rows [row0, row0 + T) of x (n, k) into dst[k][T]; rows past n are 0.
-__device__ inline void stage(const float* __restrict__ x, int n, int k, int row0, float* dst) {
+// Stage rows [row0, row0 + T) of x (n, k) into dst[k][T], divided by ls[k]
+// unless ls is null; rows past n are 0.
+__device__ inline void stage(const float* __restrict__ x, int n, int k, int row0, float* dst,
+                             const float* ls = nullptr) {
   for (int idx = threadIdx.x; idx < T * k; idx += THREADS) {
     const int r = idx / k, c = idx - r * k, g = row0 + r;
-    dst[c * T + r] = g < n ? x[(size_t)g * k + c] : 0.0f;
+    const float val = g < n ? x[(size_t)g * k + c] : 0.0f;
+    dst[c * T + r] = ls != nullptr ? __fdiv_rn(val, ls[c]) : val;
   }
 }
 
@@ -76,8 +86,8 @@ template <int KERN, bool SYM>
 __global__ void __launch_bounds__(THREADS)
 kgrad_kernel(const float* __restrict__ a, const float* __restrict__ w,
              const float* __restrict__ z, const float* __restrict__ alpha,
-             const float* __restrict__ scal, double* __restrict__ partial,
-             int n, int d, int m) {
+             const Hyper hyp, const float inv_m, double* __restrict__ partial, int n, int d,
+             int m) {
   const size_t tiles = gridDim.x, tile = blockIdx.x;
   int ti, tj;
   if (SYM) {
@@ -100,11 +110,14 @@ kgrad_kernel(const float* __restrict__ a, const float* __restrict__ w,
   float* wj = zi + m * T;     // [m][T] W rows of the column tile (mirror only)
   float* ai = SYM ? wj + m * T : zi;  // [T] alpha of the row tile
   float* aj = ai + T;         // [T] alpha of the column tile
+  float* ls = aj + T;         // [d] lengthscales
   __shared__ double red[WARPS][MAX_D + 1];
 
   const int row0 = ti * T, col0 = tj * T;
-  stage(a, n, d, row0, as);
-  stage(a, n, d, col0, bs);
+  hyper::stage_lengthscales(hyp, d, ls);
+  __syncthreads();
+  stage(a, n, d, row0, as, ls);
+  stage(a, n, d, col0, bs, ls);
   stage(w, n, m, row0, wi);
   stage(z, n, m, col0, zj);
   if (mirror) {
@@ -148,7 +161,6 @@ kgrad_kernel(const float* __restrict__ a, const float* __restrict__ w,
         for (int j = 0; j < 4; ++j) kb[i][j] = fmaf(ri[i], cj[j], kb[i][j]);
     }
   }
-  const float inv_m = scal[2];
   const float c = mirror ? 2.0f : 1.0f;
   float r2[4][4];
 #pragma unroll
@@ -205,27 +217,6 @@ kgrad_kernel(const float* __restrict__ a, const float* __restrict__ w,
   }
 }
 
-// out[t] = scale_t * sum over tiles of partial[t][tile], in a fixed order:
-// block t, thread i sums tiles i, i + 256, ... ascending, then a fixed tree.
-__global__ void __launch_bounds__(THREADS)
-kgrad_reduce_kernel(const double* __restrict__ partial, size_t tiles,
-                    const float* __restrict__ scal, double* __restrict__ out) {
-  __shared__ double buf[THREADS];
-  const int t = blockIdx.x;
-  double v = 0.0;
-  for (size_t i = threadIdx.x; i < tiles; i += THREADS) v += partial[(size_t)t * tiles + i];
-  buf[threadIdx.x] = v;
-  __syncthreads();
-  for (int half = THREADS / 2; half > 0; half >>= 1) {
-    if (threadIdx.x < half) buf[threadIdx.x] += buf[threadIdx.x + half];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
-    const double var = scal[0], gh = scal[1];
-    out[t] = (t == 0 ? 1.0 : -2.0) * gh * var * buf[0];
-  }
-}
-
 // Tiles a call visits: nb^2 dense, nb (nb + 1) / 2 symmetric.
 inline size_t kgrad_tiles(int n, bool sym) {
   const size_t nb = (size_t)((n + T - 1) / T);
@@ -234,59 +225,66 @@ inline size_t kgrad_tiles(int n, bool sym) {
 
 template <int KERN, bool SYM>
 cudaError_t launch(const float* a, const float* w, const float* z, const float* alpha,
-                   const float* scal, double* partial, double* out, int n, int d, int m,
-                   cudaStream_t st) {
-  const size_t bytes = ((size_t)(2 * d + (SYM ? 4 : 2) * m) * T + 2 * T) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kgrad_kernel<KERN, SYM>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+                   const Hyper& hyp, const Cotangent& cot, double* partial, float* out, int n,
+                   int d, int m, cudaStream_t st) {
+  static size_t granted[hyper::MAX_DEVICES] = {};
+  const size_t bytes = ((size_t)(2 * d + (SYM ? 4 : 2) * m) * T + 2 * T + d) * sizeof(float);
+  cudaError_t err = hyper::ensure_smem(kgrad_kernel<KERN, SYM>, bytes, granted);
   if (err != cudaSuccess) return err;
   const size_t tiles = kgrad_tiles(n, SYM);
-  kgrad_kernel<KERN, SYM><<<(unsigned)tiles, THREADS, bytes, st>>>(a, w, z, alpha, scal, partial,
-                                                                  n, d, m);
+  kgrad_kernel<KERN, SYM><<<(unsigned)tiles, THREADS, bytes, st>>>(a, w, z, alpha, hyp,
+                                                                  cot.inv_m, partial, n, d, m);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  kgrad_reduce_kernel<<<d + 1, THREADS, 0, st>>>(partial, tiles, scal, out);
+  kgrad_common::kgrad_reduce_kernel<<<d + 1, kgrad_common::REDUCE_THREADS, 0, st>>>(
+      partial, tiles, hyp, cot, out);
   return cudaGetLastError();
 }
 
 template <bool SYM>
 int dispatch(int kern, const float* a, const float* w, const float* z, const float* alpha,
-             const float* scal, double* partial, double* out, int n, int d, int m,
-             cudaStream_t st) {
+             const Hyper& hyp, const Cotangent& cot, double* partial, float* out, int n, int d,
+             int m, cudaStream_t st) {
+#define GPRAS_KGRAD_ARGS a, w, z, alpha, hyp, cot, partial, out, n, d, m, st
   switch (kern) {
-    case RBF: return launch<RBF, SYM>(a, w, z, alpha, scal, partial, out, n, d, m, st);
-    case MATERN12: return launch<MATERN12, SYM>(a, w, z, alpha, scal, partial, out, n, d, m, st);
-    case MATERN32: return launch<MATERN32, SYM>(a, w, z, alpha, scal, partial, out, n, d, m, st);
-    case MATERN52: return launch<MATERN52, SYM>(a, w, z, alpha, scal, partial, out, n, d, m, st);
-    case EXPONENTIAL:
-      return launch<EXPONENTIAL, SYM>(a, w, z, alpha, scal, partial, out, n, d, m, st);
+    case RBF: return launch<RBF, SYM>(GPRAS_KGRAD_ARGS);
+    case MATERN12: return launch<MATERN12, SYM>(GPRAS_KGRAD_ARGS);
+    case MATERN32: return launch<MATERN32, SYM>(GPRAS_KGRAD_ARGS);
+    case MATERN52: return launch<MATERN52, SYM>(GPRAS_KGRAD_ARGS);
+    case EXPONENTIAL: return launch<EXPONENTIAL, SYM>(GPRAS_KGRAD_ARGS);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef GPRAS_KGRAD_ARGS
 }
 
 }  // namespace
 
 extern "C" {
 
-// out (1 + d) float64 = [d log_variance, d log_lengthscales...] of
-// sum_ij Kbar_ij dK_ij. a (n, d) lengthscale-pre-scaled, w and z (n, m),
-// alpha (n): contiguous fp32. scal: [var, gh, 1/m] fp32 in device memory.
-// partial: scratch of (1 + d) * tiles doubles, tiles = nb^2 (dense) or
-// nb (nb + 1) / 2 (sym), nb = ceil(n / 64). sym selects B5.
+// out (1 + d) fp32 = [d log_variance, d log_lengthscales...] of
+// sum_ij Kbar_ij dK_ij. a (n, d) raw coordinates, w and z (n, m), alpha (n):
+// contiguous fp32. log_var, log_ls (d floats ls_stride apart): hyper.cuh's
+// Hyper. g: the cotangent's scale, one fp32 in device memory (g_p) or, when
+// g_p is null, g_v; inv_m = 1 / m. partial: scratch of (1 + d) * tiles
+// doubles, tiles = nb^2 (dense) or nb (nb + 1) / 2 (sym), nb = ceil(n / 64).
+// sym selects the tile-per-block symmetric body.
 int gpras_kgrad(int kern, const void* a, const void* w, const void* z, const void* alpha,
-                const void* scal, void* partial, void* out, int n, int d, int m, int sym,
+                const void* log_var, const void* log_ls, int ls_stride, const void* g_p,
+                float g_v, float inv_m, void* partial, void* out, int n, int d, int m, int sym,
                 void* stream) {
   if (d < 1 || d > MAX_D) return (int)cudaErrorInvalidValue;
   const float* A = static_cast<const float*>(a);
   const float* W = static_cast<const float*>(w);
   const float* Z = static_cast<const float*>(z);
   const float* AL = static_cast<const float*>(alpha);
-  const float* S = static_cast<const float*>(scal);
+  const Hyper hyp{static_cast<const float*>(log_var), static_cast<const float*>(log_ls),
+                  ls_stride, nullptr, 0.0f};
+  const Cotangent cot{static_cast<const float*>(g_p), g_v, inv_m};
   double* P = static_cast<double*>(partial);
-  double* O = static_cast<double*>(out);
+  float* O = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return sym ? dispatch<true>(kern, A, W, Z, AL, S, P, O, n, d, m, st)
-             : dispatch<false>(kern, A, W, Z, AL, S, P, O, n, d, m, st);
+  return sym ? dispatch<true>(kern, A, W, Z, AL, hyp, cot, P, O, n, d, m, st)
+             : dispatch<false>(kern, A, W, Z, AL, hyp, cot, P, O, n, d, m, st);
 }
 
 }  // extern "C"

@@ -1,22 +1,40 @@
 // Fused stationary-covariance matvec kernel B2 for Hopper (sm_90a).
 //
 // Replaces _kmv_body of gpras_tpu/ops/pallas_gram.py (:84-149, launcher
-// pallas_kmv :466-480): (K(a, b) [+ noise I when square]) @ V from
-// lengthscale-pre-scaled coordinates without ever storing a covariance tile
-// in device memory. The symmetric body (B3) is csrc/kmv_sym.cu.
+// pallas_kmv :466-480): (K(a, b) [+ noise I when square]) @ V from raw
+// coordinates, divided by the lengthscales where they are staged (hyper.cuh),
+// without ever storing a covariance tile in device memory. The symmetric
+// body (B3) is csrc/kmv_sym.cu.
 //
 // What bounds it on an H100: at the serving shape (256 queries against
 // N = 49,152, D = 8, R = 1) one call evaluates ~1.3e7 covariance entries, each
 // ~28 fp32 operations plus a sqrt and an exp, against 2 for the contraction
-// and O(N D) bytes: it is bound by the entries' operations. The design keeps
-// each 64 x 64 covariance tile in shared memory, builds it once, and contracts
-// it with V in a register-blocked fp32 FMA loop (4 x TR outputs per thread).
-// The posterior-mean call has only 1 or 4 row tiles for 132 SMs, so the
-// column sweep is split over blocks and the partial sums are added in a fixed
-// order by a second kernel. On an H100 80GB HBM3 at 700 W that is 24x faster
-// than one block per row tile (0.16 vs 4.1 ms), and the two-level sum is more
-// exact: one fp32 accumulator over 49,152 terms left ~7e-6 of the result's
-// scale, the split ~1e-6 (PERF.md).
+// and O(N D) bytes: it is bound by the entries' operations, ~5 us of them at
+// the card's fp32 peak, so by how many of its 132 SMs issue and how little
+// else they do per entry. Two designs, picked by the wrapper
+// (ops/fused_gram.kmv_dense_plan) from the shape:
+//
+// ROWS, R <= 16 and too few 64-row tiles to fill the card (the posterior mean
+//   of a 64- or 256-query bucket): the matrix-vector product it is. A thread
+//   owns one query row, its scaled coordinates and squared norm in registers
+//   (the coordinates past the first 8 in shared memory), and a block of 64
+//   threads sweeps a chunk of the N2 points, staged 64 at a time in shared
+//   memory as packed records (scaled coordinates, norm, the R values of V)
+//   that every lane reads by 16-byte broadcast loads. No covariance tile in
+//   shared memory, no barrier inside the sweep of a stage, no idle lanes at
+//   R = 1 (the tiled design gives 15 of 16 threads a column that does not
+//   exist there). The chunks are as many as fill the SMs several blocks
+//   deep; each block writes its partial sums to a slot of its own and
+//   kmv_rows_reduce_kernel adds the slots per output element, lane k taking
+//   chunks k, k + 32, ... in order and a fixed butterfly joining the lanes.
+// TILES, every other shape: each 64 x 64 covariance tile is built once in
+//   shared memory and contracted with V in a register-blocked fp32 FMA loop
+//   (4 x TR outputs per thread); when the row tiles alone leave SMs idle the
+//   column sweep is split over blocks and kmv_reduce_kernel adds the partial
+//   sums in a fixed order.
+// Both are deterministic bit for bit (no atomics), and the two-level sums are
+// more exact than one fp32 accumulator over 49,152 terms, which left ~7e-6 of
+// the result's scale against ~1e-6 (PERF.md).
 //
 // Numerics follow _tile_value (:35-74) verbatim: r2 = max(a2 + b2 - 2ab, 0)
 // with the D-wide dot and the norms accumulated in full fp32 by the same FMA
@@ -30,11 +48,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hyper.cuh"
 #include "stationary.cuh"
 
 namespace {
 
 using namespace stationary;
+using hyper::Hyper;
 
 constexpr int T = 64;            // covariance tile edge (rows and columns)
 constexpr int THREADS = 256;     // 16 x 16 threads; each owns 4 rows x TR columns
@@ -49,10 +69,11 @@ struct Smem {
   float* bs;  // [d][T] column-tile coordinates, transposed
   float* a2;  // [T] squared norms of the row tile
   float* b2;  // [T] squared norms of the column tile
+  float* ls;  // [d] lengthscales
 };
 
 __host__ __device__ inline size_t smem_floats(int d, int tr) {
-  return (size_t)T * KPAD + (size_t)KC * 16 * tr + 2 * (size_t)d * T + 2 * T;
+  return (size_t)T * KPAD + (size_t)KC * 16 * tr + 2 * (size_t)d * T + 2 * T + d;
 }
 
 __device__ inline Smem carve(float* base, int d, int tr) {
@@ -63,16 +84,18 @@ __device__ inline Smem carve(float* base, int d, int tr) {
   s.bs = s.as + d * T;
   s.a2 = s.bs + d * T;
   s.b2 = s.a2 + T;
+  s.ls = s.b2 + T;
   return s;
 }
 
-// Stage rows [row0, row0 + T) of x (n, d) into dst[d][T]; rows past n are 0.
+// Stage rows [row0, row0 + T) of x (n, d), divided by the lengthscales ls,
+// into dst[d][T]; rows past n are 0.
 __device__ inline void load_coords(const float* __restrict__ x, int n, int d,
-                                   int row0, float* dst) {
+                                   int row0, const float* ls, float* dst) {
   for (int idx = threadIdx.x; idx < T * d; idx += THREADS) {
     const int row = idx / d, col = idx - row * d;
     const int g = row0 + row;
-    dst[col * T + row] = g < n ? x[(size_t)g * d + col] : 0.0f;
+    dst[col * T + row] = g < n ? __fdiv_rn(x[(size_t)g * d + col], ls[col]) : 0.0f;
   }
 }
 
@@ -184,19 +207,20 @@ __device__ inline void store(float* __restrict__ out, const float (&acc)[4][TR],
 template <int KERN, int TR>
 __global__ void __launch_bounds__(THREADS)
 kmv_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
-                 const float* __restrict__ v, float* __restrict__ out,
-                 const float* __restrict__ var_p, const float* __restrict__ noise_p,
+                 const float* __restrict__ v, float* __restrict__ out, const Hyper hyp,
                  int n1, int n2, int d, int r, int square, int tiles_per_split) {
   extern __shared__ float4 smem4[];
   const Smem s = carve(reinterpret_cast<float*>(smem4), d, TR);
-  const float var = *var_p, noise = *noise_p;
+  const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
   const int row0 = blockIdx.x * T;
   const int r0 = blockIdx.y * 16 * TR;
   const int ntiles = (n2 + T - 1) / T;
   const int jt0 = blockIdx.z * tiles_per_split;
   const int jt1 = min(ntiles, jt0 + tiles_per_split);
 
-  load_coords(a, n1, d, row0, s.as);
+  hyper::stage_lengthscales(hyp, d, s.ls);
+  __syncthreads();
+  load_coords(a, n1, d, row0, s.ls, s.as);
   __syncthreads();
   if (threadIdx.x < T) norms(s.as, d, s.a2, threadIdx.x);
 
@@ -204,7 +228,7 @@ kmv_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
   for (int jt = jt0; jt < jt1; ++jt) {
     const int col0 = jt * T;
     __syncthreads();  // the previous tile's readers are done with bs / ks
-    load_coords(b, n2, d, col0, s.bs);
+    load_coords(b, n2, d, col0, s.ls, s.bs);
     __syncthreads();
     if (threadIdx.x < T) norms(s.bs, d, s.b2, threadIdx.x);
     __syncthreads();
@@ -226,6 +250,181 @@ __global__ void kmv_reduce_kernel(const float* __restrict__ parts,
   }
 }
 
+// ------------------------------------------------------------- ROWS
+
+constexpr int RB = 64;  // rows per block, one per thread; also points per stage
+
+__device__ __forceinline__ void ld8(float (&dst)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  dst[0] = a.x; dst[1] = a.y; dst[2] = a.z; dst[3] = a.w;
+  dst[4] = b.x; dst[5] = b.y; dst[6] = b.z; dst[7] = b.w;
+}
+
+// A staged point's record: dp scaled coordinates (d padded with zeros to a
+// multiple of 8), then [norm, V (RT == 1), 0, 0], then for RT > 1 the RT
+// values of V (zeros past r).
+__host__ __device__ constexpr int rows_tail(int rt) { return 4 + (rt == 1 ? 0 : rt); }
+
+// floats of shared memory: the stage's records, the rows' coordinates past
+// the first 8 (stride dp - 4: an odd number of 16-byte units, so a quarter
+// warp's loads hit distinct banks), the lengthscales
+__host__ __device__ inline size_t rows_smem_floats(int dp, int rt) {
+  return (size_t)RB * (dp + rows_tail(rt)) + (dp > 8 ? (size_t)RB * (dp - 4) : 0) + dp;
+}
+
+// The thread's row against the stage's RB records, in order.
+template <int KERN, int RT, bool DIAG>
+__device__ __forceinline__ void rows_sweep(const float* recs, int rec, int dp,
+                                           const float (&xa)[8], const float* xrest, float am,
+                                           int gm, int col0, float var, float noise,
+                                           float (&acc)[RT]) {
+#pragma unroll 4
+  for (int p = 0; p < RB; ++p) {
+    const float* const rc = recs + p * rec;
+    float cb[8];
+    ld8(cb, rc);
+    float dot = 0.0f;
+#pragma unroll
+    for (int c = 0; c < 8; ++c) dot = fmaf(xa[c], cb[c], dot);
+    for (int c8 = 8; c8 < dp; c8 += 8) {
+      float ra[8];
+      ld8(ra, xrest + c8 - 8);
+      ld8(cb, rc + c8);
+#pragma unroll
+      for (int c = 0; c < 8; ++c) dot = fmaf(ra[c], cb[c], dot);
+    }
+    const float4 t = *reinterpret_cast<const float4*>(rc + dp);
+    const float r2 = fmaxf(am + t.x - 2.0f * dot, 0.0f);
+    float kv = covariance<KERN>(r2, var);
+    if (DIAG && gm == col0 + p) kv += noise;
+    if constexpr (RT == 1) {
+      acc[0] = fmaf(kv, t.y, acc[0]);
+    } else {
+#pragma unroll
+      for (int g4 = 0; g4 < RT / 4; ++g4) {
+        const float4 q = *reinterpret_cast<const float4*>(rc + dp + 4 + 4 * g4);
+        acc[4 * g4 + 0] = fmaf(kv, q.x, acc[4 * g4 + 0]);
+        acc[4 * g4 + 1] = fmaf(kv, q.y, acc[4 * g4 + 1]);
+        acc[4 * g4 + 2] = fmaf(kv, q.z, acc[4 * g4 + 2]);
+        acc[4 * g4 + 3] = fmaf(kv, q.w, acc[4 * g4 + 3]);
+      }
+    }
+  }
+}
+
+// Block (x, y): chunk x of the column points (stages [x per, x per + per) of
+// RB points), rows [RB y, RB y + RB), thread t row RB y + t. Writes its
+// partial sums to slot x of out (n1 x r floats a slot).
+template <int KERN, int RT>
+__global__ void __launch_bounds__(RB)
+kmv_rows_kernel(const float* __restrict__ a, const float* __restrict__ b,
+                const float* __restrict__ v, float* __restrict__ out, const Hyper hyp, int n1,
+                int n2, int d, int dp, int r, int square, int per) {
+  extern __shared__ float4 smem4[];
+  float* const recs = reinterpret_cast<float*>(smem4);
+  const int rec = dp + rows_tail(RT), xs = dp - 4;
+  float* const rows = recs + RB * rec;
+  float* const ls = rows + (dp > 8 ? RB * xs : 0);
+  const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
+  const int tid = threadIdx.x;
+  const int row0 = blockIdx.y * RB, gm = row0 + tid;
+  for (int c = tid; c < dp; c += RB) ls[c] = c < d ? hyper::lengthscale(hyp, c) : 1.0f;
+  __syncthreads();
+
+  // the thread's row: scaled coordinates and their norm, by the dot's chain
+  float xa[8];
+  float am = 0.0f;
+  float* const xrest = rows + tid * xs;
+#pragma unroll
+  for (int c = 0; c < 8; ++c) {
+    xa[c] = (gm < n1 && c < d) ? __fdiv_rn(a[(size_t)gm * d + c], ls[c]) : 0.0f;
+    am = fmaf(xa[c], xa[c], am);
+  }
+  for (int c = 8; c < dp; ++c) {
+    const float val = (gm < n1 && c < d) ? __fdiv_rn(a[(size_t)gm * d + c], ls[c]) : 0.0f;
+    xrest[c - 8] = val;
+    am = fmaf(val, val, am);
+  }
+
+  float acc[RT];
+#pragma unroll
+  for (int c = 0; c < RT; ++c) acc[c] = 0.0f;
+  const int stages = (n2 + RB - 1) / RB;
+  const int t0 = blockIdx.x * per, t1 = min(stages, t0 + per);
+  for (int t = t0; t < t1; ++t) {
+    const int col0 = t * RB, gn = col0 + tid;
+    __syncthreads();  // the previous stage's readers are done with recs
+    float* const rc = recs + tid * rec;
+    float bn = 0.0f;
+    for (int c = 0; c < dp; ++c) {
+      const float val = (gn < n2 && c < d) ? __fdiv_rn(b[(size_t)gn * d + c], ls[c]) : 0.0f;
+      rc[c] = val;
+      bn = fmaf(val, val, bn);
+    }
+    rc[dp] = bn;
+    rc[dp + 1] = (RT == 1 && gn < n2) ? v[(size_t)gn * r] : 0.0f;
+    rc[dp + 2] = rc[dp + 3] = 0.0f;
+    if constexpr (RT > 1) {
+#pragma unroll
+      for (int c = 0; c < RT; ++c)
+        rc[dp + 4 + c] = (gn < n2 && c < r) ? v[(size_t)gn * r + c] : 0.0f;
+    }
+    __syncthreads();
+    // a point past n2 carries V = 0, so it adds nothing; only a stage that
+    // crosses this block's rows on the diagonal pays for the noise check
+    if (square && col0 < row0 + RB && row0 < col0 + RB)
+      rows_sweep<KERN, RT, true>(recs, rec, dp, xa, xrest, am, gm, col0, var, noise, acc);
+    else
+      rows_sweep<KERN, RT, false>(recs, rec, dp, xa, xrest, am, gm, col0, var, noise, acc);
+  }
+  if (gm < n1) {
+    float* const dst = out + ((size_t)blockIdx.x * n1 + gm) * r;
+#pragma unroll
+    for (int c = 0; c < RT; ++c)
+      if (c < r) dst[c] = acc[c];
+  }
+}
+
+// out[e] = sum over slots k of parts[k][e]: one warp per element, lane l adds
+// slots l, l + 32, ... in order, then a fixed butterfly joins the lanes.
+__global__ void __launch_bounds__(THREADS)
+kmv_rows_reduce_kernel(const float* __restrict__ parts, float* __restrict__ out, int count,
+                       int slots) {
+  const int e = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
+  const int lane = threadIdx.x & 31;
+  if (e >= count) return;
+  float acc = 0.0f;
+  for (int k = lane; k < slots; k += 32) acc += parts[(size_t)k * count + e];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) acc += __shfl_xor_sync(0xffffffffu, acc, off);
+  if (lane == 0) out[e] = acc;
+}
+
+template <int KERN, int RT>
+cudaError_t launch_rows(const float* a, const float* b, const float* v, float* out,
+                        float* parts, const Hyper& hyp, int n1, int n2, int d, int r, int square,
+                        int splits, cudaStream_t stream) {
+  static size_t granted[hyper::MAX_DEVICES] = {};
+  const int dp = (d + 7) / 8 * 8;
+  const size_t bytes = rows_smem_floats(dp, RT) * sizeof(float);
+  cudaError_t err = hyper::ensure_smem(kmv_rows_kernel<KERN, RT>, bytes, granted);
+  if (err != cudaSuccess) return err;
+  const int stages = (n2 + RB - 1) / RB;
+  const int per = (stages + splits - 1) / splits;
+  const dim3 grid(splits, (n1 + RB - 1) / RB);
+  kmv_rows_kernel<KERN, RT><<<grid, RB, bytes, stream>>>(
+      a, b, v, splits > 1 ? parts : out, hyp, n1, n2, d, dp, r, square, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || splits == 1) return err;
+  const int count = n1 * r;
+  kmv_rows_reduce_kernel<<<(count + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, stream>>>(
+      parts, out, count, splits);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------------------ launch
+
 inline int elementwise_blocks(size_t count) {
   const size_t blocks = (count + THREADS - 1) / THREADS;
   return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
@@ -233,19 +432,17 @@ inline int elementwise_blocks(size_t count) {
 
 template <int KERN, int TR>
 cudaError_t launch_dense(const float* a, const float* b, const float* v, float* out,
-                         float* parts, const float* var, const float* noise,
-                         int n1, int n2, int d, int r, int square, int splits,
-                         cudaStream_t stream) {
+                         float* parts, const Hyper& hyp, int n1, int n2, int d, int r,
+                         int square, int splits, cudaStream_t stream) {
+  static size_t granted[hyper::MAX_DEVICES] = {};
   const size_t bytes = smem_floats(d, TR) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(kmv_dense_kernel<KERN, TR>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)bytes);
+  cudaError_t err = hyper::ensure_smem(kmv_dense_kernel<KERN, TR>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int ntiles = (n2 + T - 1) / T;
   const int per = (ntiles + splits - 1) / splits;
   const dim3 grid((n1 + T - 1) / T, (r + 16 * TR - 1) / (16 * TR), splits);
   kmv_dense_kernel<KERN, TR><<<grid, THREADS, bytes, stream>>>(
-      a, b, v, splits > 1 ? parts : out, var, noise, n1, n2, d, r, square, per);
+      a, b, v, splits > 1 ? parts : out, hyp, n1, n2, d, r, square, per);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
   const size_t count = (size_t)n1 * r;
@@ -254,16 +451,24 @@ cudaError_t launch_dense(const float* a, const float* b, const float* v, float* 
   return cudaGetLastError();
 }
 
-// Columns per thread: 1 (R <= 16), 4 (R <= 64) or 16 (256 columns a block).
+// ROWS: V columns held per thread, 1, 4, 8 or 16 (R <= 16). TILES: columns
+// per thread, 1 (R <= 16), 4 (R <= 64) or 16 (256 columns a block).
 template <int KERN>
-cudaError_t dense_tr(const float* a, const float* b, const float* v, float* out,
-                     float* parts, const float* var, const float* noise, int n1,
-                     int n2, int d, int r, int square, int splits, cudaStream_t st) {
-  if (r <= 16)
-    return launch_dense<KERN, 1>(a, b, v, out, parts, var, noise, n1, n2, d, r, square, splits, st);
-  if (r <= 64)
-    return launch_dense<KERN, 4>(a, b, v, out, parts, var, noise, n1, n2, d, r, square, splits, st);
-  return launch_dense<KERN, 16>(a, b, v, out, parts, var, noise, n1, n2, d, r, square, splits, st);
+cudaError_t dispatch(const float* a, const float* b, const float* v, float* out, float* parts,
+                     const Hyper& hyp, int n1, int n2, int d, int r, int square, int rows,
+                     int splits, cudaStream_t st) {
+#define GPRAS_KMV_ARGS a, b, v, out, parts, hyp, n1, n2, d, r, square, splits, st
+  if (rows) {
+    if (r == 1) return launch_rows<KERN, 1>(GPRAS_KMV_ARGS);
+    if (r <= 4) return launch_rows<KERN, 4>(GPRAS_KMV_ARGS);
+    if (r <= 8) return launch_rows<KERN, 8>(GPRAS_KMV_ARGS);
+    if (r <= 16) return launch_rows<KERN, 16>(GPRAS_KMV_ARGS);
+    return cudaErrorInvalidValue;
+  }
+  if (r <= 16) return launch_dense<KERN, 1>(GPRAS_KMV_ARGS);
+  if (r <= 64) return launch_dense<KERN, 4>(GPRAS_KMV_ARGS);
+  return launch_dense<KERN, 16>(GPRAS_KMV_ARGS);
+#undef GPRAS_KMV_ARGS
 }
 
 }  // namespace
@@ -271,28 +476,35 @@ cudaError_t dense_tr(const float* a, const float* b, const float* v, float* out,
 extern "C" {
 
 // out (n1, r) = K(a, b) @ v [+ noise * v on the diagonal when square].
-// a (n1, d), b (n2, d), v (n2, r): contiguous fp32, lengthscale-pre-scaled
-// coordinates. var, noise: one fp32 each, in device memory. parts: scratch of
-// splits * n1 * r floats when splits > 1 (unused otherwise).
+// a (n1, d), b (n2, d), v (n2, r): contiguous fp32, raw coordinates.
+// log_var, log_ls (d floats ls_stride apart), noise: hyper.cuh's Hyper. rows
+// selects the design (1: ROWS, r <= 16; 0: TILES); splits: blocks along the
+// column sweep. parts: scratch of splits * n1 * r floats when splits > 1
+// (unused otherwise).
 int gpras_kmv_dense(int kern, const void* a, const void* b, const void* v, void* out,
-                    void* parts, const void* var, const void* noise, int n1, int n2,
-                    int d, int r, int square, int splits, void* stream) {
+                    void* parts, const void* log_var, const void* log_ls, int ls_stride,
+                    const void* noise_p, float noise_v, int n1, int n2, int d, int r, int square,
+                    int rows, int splits, void* stream) {
+  if (n1 < 1 || n2 < 1 || d < 1 || r < 1 || splits < 1) return (int)cudaErrorInvalidValue;
   const float* A = static_cast<const float*>(a);
   const float* B = static_cast<const float*>(b);
   const float* V = static_cast<const float*>(v);
   float* O = static_cast<float*>(out);
   float* P = static_cast<float*>(parts);
-  const float* VAR = static_cast<const float*>(var);
-  const float* NZ = static_cast<const float*>(noise);
+  const Hyper hyp{static_cast<const float*>(log_var), static_cast<const float*>(log_ls),
+                  ls_stride, static_cast<const float*>(noise_p), noise_v};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define GPRAS_KMV_DISPATCH(K) \
+  dispatch<K>(A, B, V, O, P, hyp, n1, n2, d, r, square, rows, splits, st)
   switch (kern) {
-    case RBF: return dense_tr<RBF>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
-    case MATERN12: return dense_tr<MATERN12>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
-    case MATERN32: return dense_tr<MATERN32>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
-    case MATERN52: return dense_tr<MATERN52>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
-    case EXPONENTIAL: return dense_tr<EXPONENTIAL>(A, B, V, O, P, VAR, NZ, n1, n2, d, r, square, splits, st);
+    case RBF: return GPRAS_KMV_DISPATCH(RBF);
+    case MATERN12: return GPRAS_KMV_DISPATCH(MATERN12);
+    case MATERN32: return GPRAS_KMV_DISPATCH(MATERN32);
+    case MATERN52: return GPRAS_KMV_DISPATCH(MATERN52);
+    case EXPONENTIAL: return GPRAS_KMV_DISPATCH(EXPONENTIAL);
     default: return (int)cudaErrorInvalidValue;
   }
+#undef GPRAS_KMV_DISPATCH
 }
 
 }  // extern "C"

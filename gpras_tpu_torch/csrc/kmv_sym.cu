@@ -1,9 +1,10 @@
 // Symmetric fused covariance matvec (B3) for Hopper (sm_90a).
 //
 // Replaces _kmv_sym_body of gpras_tpu/ops/pallas_gram.py (:152-257, launcher
-// pallas_kmv :376-464): out (n, r) = (K(x, x) + noise I) @ V from
-// lengthscale-pre-scaled coordinates x (n, d) and V (n, r), without storing a
-// covariance tile in device memory. It is the matvec of every CG iteration of
+// pallas_kmv :376-464): out (n, r) = (K(x, x) + noise I) @ V from raw
+// coordinates x (n, d), which the prep grid divides by the lengthscales
+// (hyper.cuh), and V (n, r), without storing a covariance tile in device
+// memory. It is the matvec of every CG iteration of
 // the served posterior (gp/exact_cg.kmv).
 //
 // What bounds it on an H100, at the serving shapes (n = 49,152, d = 8):
@@ -71,11 +72,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "hyper.cuh"
 #include "stationary.cuh"
 
 namespace {
 
 using namespace stationary;
+using hyper::Hyper;
 
 constexpr int THREADS = 256;  // 8 warps
 constexpr int BM = 128;       // TC: output rows per block (8 warps x 16)
@@ -143,8 +146,8 @@ __device__ __forceinline__ float entry(float am, float bn, float dot, int gm, in
 
 // ----------------------------------------------------------- prep (both)
 
-// xp (npad, dp): x zero-padded; nrm (npad): squared norms by the dot's FMA
-// chain; vbuf: V laid out for the main kernel, zero outside (n, r):
+// xp (npad, dp): x divided by the lengthscales, zero-padded; nrm (npad): its
+// squared norms by the dot's FMA chain; vbuf: V laid out for the main kernel, zero outside (n, r):
 //   split (TC, width = nt): [chunk][npad / 8][4][8][2][nt][2]; element
 //     (s, t, g, h, q, p) is part h (0: tf32 hi, 1: tf32 lo) of
 //     V[8 s + t + 4 p][chunk * 8 nt + 8 q + g]: the B fragment pair (b0, b1)
@@ -153,18 +156,21 @@ __device__ __forceinline__ float entry(float am, float bn, float dot, int gm, in
 //     V[k][chunk * rs + q]
 __global__ void prep_kernel(const float* __restrict__ x, const float* __restrict__ v,
                             float* __restrict__ xp, float* __restrict__ nrm,
-                            float* __restrict__ vbuf, int n, int npad, int d, int dp, int r,
-                            int width, int split, size_t vcount) {
+                            float* __restrict__ vbuf, const Hyper hyp, int n, int npad, int d,
+                            int dp, int r, int width, int split, size_t vcount) {
   const size_t stride = (size_t)gridDim.x * blockDim.x;
   const size_t start = blockIdx.x * (size_t)blockDim.x + threadIdx.x;
   for (size_t e = start; e < (size_t)npad * dp; e += stride) {
     const int k = (int)(e / dp), c = (int)(e - (size_t)k * dp);
-    xp[e] = (k < n && c < d) ? x[(size_t)k * d + c] : 0.0f;
+    xp[e] = (k < n && c < d) ? __fdiv_rn(x[(size_t)k * d + c], hyper::lengthscale(hyp, c)) : 0.0f;
   }
   for (size_t k = start; k < (size_t)npad; k += stride) {
     float acc = 0.0f;
     if (k < (size_t)n)
-      for (int c = 0; c < d; ++c) acc = fmaf(x[k * d + c], x[k * d + c], acc);
+      for (int c = 0; c < d; ++c) {
+        const float val = __fdiv_rn(x[k * d + c], hyper::lengthscale(hyp, c));
+        acc = fmaf(val, val, acc);
+      }
     nrm[k] = acc;
   }
   const int row = split ? 16 * width : width;  // floats per point and chunk
@@ -280,15 +286,14 @@ __device__ __forceinline__ void build_stage(uint32_t (&hi)[BK / 8][4], uint32_t 
 template <int KERN, int NT>
 __global__ void __launch_bounds__(THREADS, NT >= 32 ? 1 : 2)
 kmv_tc_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
-              const float* __restrict__ vbuf, float* __restrict__ out,
-              const float* __restrict__ var_p, const float* __restrict__ noise_p, int n,
+              const float* __restrict__ vbuf, float* __restrict__ out, const Hyper hyp, int n,
               int npad, int dp, int r, int per) {
   using L = Tc<NT>;
   constexpr int KS = BK / 8;  // mma k-steps per stage
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int stage = tc_stage_floats(NT, dp);
-  const float var = *var_p, noise = *noise_p;
+  const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int gm0 = blockIdx.x * BM + warp * 16 + g, gm1 = gm0 + 8;
@@ -424,9 +429,8 @@ __host__ __device__ inline size_t sym_slot(int i, int j) {
 template <int KERN, int RS>
 __global__ void __launch_bounds__(THREADS, RS == 1 ? 3 : 1)
 kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
-                     const float* __restrict__ vbuf, float* __restrict__ slots,
-                     const float* __restrict__ var_p, const float* __restrict__ noise_p, int n,
-                     int npad, int dp, int r) {
+                     const float* __restrict__ vbuf, float* __restrict__ slots, const Hyper hyp,
+                     int n, int npad, int dp, int r) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
   const int cs = dp + 4;  // padded coordinate row: 16-byte aligned, no bank conflicts
@@ -434,7 +438,7 @@ kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm
   float* const rows_x = smem + 2 * stage;
   float* const rows_n = rows_x + ST * cs;
   float* const red = rows_n + ST;
-  const float var = *var_p, noise = *noise_p;
+  const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
   const int nb = (n + ST - 1) / ST;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int col0 = blockIdx.y * RS;
@@ -599,16 +603,16 @@ inline int elementwise_blocks(size_t count) {
 
 template <int KERN, int NT>
 cudaError_t launch_tc(const float* xp, const float* nrm, const float* vbuf, float* out,
-                      float* parts, const float* var, const float* noise, int n, int npad,
-                      int dp, int r, int splits, int* grids, cudaStream_t st) {
+                      float* parts, const Hyper& hyp, int n, int npad, int dp, int r, int splits,
+                      int* grids, cudaStream_t st) {
+  static size_t granted[hyper::MAX_DEVICES] = {};
   const size_t bytes = 2 * (size_t)tc_stage_floats(NT, dp) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kmv_tc_kernel<KERN, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = hyper::ensure_smem(kmv_tc_kernel<KERN, NT>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int stages = npad / BK, per = (stages + splits - 1) / splits;
   const dim3 grid(npad / BM, (r + 8 * NT - 1) / (8 * NT), splits);
   kmv_tc_kernel<KERN, NT><<<grid, THREADS, bytes, st>>>(
-      xp, nrm, vbuf, splits > 1 ? parts : out, var, noise, n, npad, dp, r, per);
+      xp, nrm, vbuf, splits > 1 ? parts : out, hyp, n, npad, dp, r, per);
   ++*grids;
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -621,16 +625,16 @@ cudaError_t launch_tc(const float* xp, const float* nrm, const float* vbuf, floa
 
 template <int KERN, int RS>
 cudaError_t launch_sym(const float* xp, const float* nrm, const float* vbuf, float* out,
-                       float* slots, const float* var, const float* noise, int n, int npad,
-                       int dp, int r, int* grids, cudaStream_t st) {
+                       float* slots, const Hyper& hyp, int n, int npad, int dp, int r,
+                       int* grids, cudaStream_t st) {
+  static size_t granted[hyper::MAX_DEVICES] = {};
   const size_t bytes = (size_t)sym_smem_floats(RS, dp) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      kmv_sym_tiles_kernel<KERN, RS>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  cudaError_t err = hyper::ensure_smem(kmv_sym_tiles_kernel<KERN, RS>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int nb = (n + ST - 1) / ST;
   const dim3 grid((nb + 1) / 2, (r + RS - 1) / RS);
-  kmv_sym_tiles_kernel<KERN, RS><<<grid, THREADS, bytes, st>>>(xp, nrm, vbuf, slots, var,
-                                                               noise, n, npad, dp, r);
+  kmv_sym_tiles_kernel<KERN, RS><<<grid, THREADS, bytes, st>>>(xp, nrm, vbuf, slots, hyp, n,
+                                                               npad, dp, r);
   ++*grids;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -642,19 +646,17 @@ cudaError_t launch_sym(const float* xp, const float* nrm, const float* vbuf, flo
 
 template <int KERN>
 cudaError_t dispatch(const float* xp, const float* nrm, const float* vbuf, float* out,
-                     float* parts, const float* var, const float* noise, int n, int npad,
-                     int dp, int r, int width, int tc, int splits, int* grids,
-                     cudaStream_t st) {
+                     float* parts, const Hyper& hyp, int n, int npad, int dp, int r, int width,
+                     int tc, int splits, int* grids, cudaStream_t st) {
   if (tc && width == 8)
-    return launch_tc<KERN, 8>(xp, nrm, vbuf, out, parts, var, noise, n, npad, dp, r, splits,
-                              grids, st);
+    return launch_tc<KERN, 8>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, splits, grids, st);
   if (tc && width == 32)
-    return launch_tc<KERN, 32>(xp, nrm, vbuf, out, parts, var, noise, n, npad, dp, r, splits,
-                               grids, st);
+    return launch_tc<KERN, 32>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, splits, grids,
+                               st);
   if (!tc && width == 1)
-    return launch_sym<KERN, 1>(xp, nrm, vbuf, out, parts, var, noise, n, npad, dp, r, grids, st);
+    return launch_sym<KERN, 1>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, grids, st);
   if (!tc && width == 4)
-    return launch_sym<KERN, 4>(xp, nrm, vbuf, out, parts, var, noise, n, npad, dp, r, grids, st);
+    return launch_sym<KERN, 4>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, grids, st);
   return cudaErrorInvalidValue;
 }
 
@@ -663,8 +665,8 @@ cudaError_t dispatch(const float* xp, const float* nrm, const float* vbuf, float
 extern "C" {
 
 // out (n, r) = (K(x, x) + noise I) @ v. x (n, d), v (n, r): contiguous fp32,
-// lengthscale-pre-scaled coordinates; var, noise: one fp32 each, in device
-// memory. The plan comes from the wrapper (ops/fused_gram.kmv_sym_plan):
+// raw coordinates; log_var, log_ls (d floats ls_stride apart), noise:
+// hyper.cuh's Hyper. The plan comes from the wrapper (ops/fused_gram.kmv_sym_plan):
 // npad (a multiple of 128, >= n), dp (a multiple of 8, >= d), tc (1: the
 // tensor-core build, width = n-tiles of 8 columns, 8 or 32, its column sweep
 // split over `splits` blocks; 0: the symmetric build, width = columns per
@@ -674,9 +676,9 @@ extern "C" {
 // partial sums, splits * n * r (unused when tc and splits == 1). *grids: set
 // to the number of CUDA grids this call launched (one added at each launch).
 int gpras_kmv_sym(int kern, const void* x, const void* v, void* out, void* xp, void* nrm,
-                  void* vbuf, void* parts, const void* var, const void* noise, int n, int d,
-                  int r, int npad, int dp, int width, int tc, int splits, int* grids,
-                  void* stream) {
+                  void* vbuf, void* parts, const void* log_var, const void* log_ls,
+                  int ls_stride, const void* noise_p, float noise_v, int n, int d, int r,
+                  int npad, int dp, int width, int tc, int splits, int* grids, void* stream) {
   *grids = 0;
   const bool plan_ok = tc ? (width == 8 || width == 32) && splits >= 1
                           : (width == 1 || width == 4) && splits == 1;
@@ -690,18 +692,18 @@ int gpras_kmv_sym(int kern, const void* x, const void* v, void* out, void* xp, v
   float* NRM = static_cast<float*>(nrm);
   float* VB = static_cast<float*>(vbuf);
   float* P = static_cast<float*>(parts);
-  const float* VAR = static_cast<const float*>(var);
-  const float* NZ = static_cast<const float*>(noise);
+  const Hyper hyp{static_cast<const float*>(log_var), static_cast<const float*>(log_ls),
+                  ls_stride, static_cast<const float*>(noise_p), noise_v};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int cols = tc ? 8 * width : width;
   const size_t vcount = (size_t)((r + cols - 1) / cols) * npad * (tc ? 16 * width : width);
   prep_kernel<<<elementwise_blocks(vcount > (size_t)npad * dp ? vcount : (size_t)npad * dp),
-                THREADS, 0, st>>>(X, V, XP, NRM, VB, n, npad, d, dp, r, width, tc, vcount);
+                THREADS, 0, st>>>(X, V, XP, NRM, VB, hyp, n, npad, d, dp, r, width, tc, vcount);
   ++*grids;
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 #define GPRAS_SYM_DISPATCH(K) \
-  dispatch<K>(XP, NRM, VB, O, P, VAR, NZ, n, npad, dp, r, width, tc, splits, grids, st)
+  dispatch<K>(XP, NRM, VB, O, P, hyp, n, npad, dp, r, width, tc, splits, grids, st)
   switch (kern) {
     case RBF: return GPRAS_SYM_DISPATCH(RBF);
     case MATERN12: return GPRAS_SYM_DISPATCH(MATERN12);

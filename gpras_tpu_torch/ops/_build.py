@@ -28,14 +28,20 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+# the hyperparameters every kernel entry point takes (csrc/hyper.cuh): log
+# variance, log lengthscales and their stride, then a scalar as a device
+# pointer (or null) and by value: the noise, or kgrad's cotangent scale
+_HYPER = [_P, _P, _I, _P, _F]
 # argtypes of every C entry point: pointers and the stream as void*, sizes as int
 # (gpras_kmv_sym also writes its count of launched grids to an int*)
 _SIGNATURES = {
-    "gpras_kmv_dense": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "gpras_kmv_sym": [_I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+    "gpras_kmv_dense": [_I, _P, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _I, _I, _I, _P],
+    "gpras_kmv_sym": [_I, _P, _P, _P, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _I, _I, _I, _I,
                       ctypes.POINTER(_I), _P],
-    "gpras_gram": [_I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "gpras_kgrad": [_I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "gpras_gram": [_I, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _P],
+    "gpras_kgrad": [_I, _P, _P, _P, _P, *_HYPER, _F, _P, _P, _I, _I, _I, _I, _P],
+    "gpras_kgrad_sym": [_I, _P, _P, _P, _P, *_HYPER, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "gpras_sqrt_rn": [_P, _P, ctypes.c_size_t, _P],
 }
 

@@ -8,11 +8,14 @@ bounds it on an H100 and how the design answers it):
 - ``gram`` (B1, ``csrc/gram.cu``) replaces ``_tile_body``: K(x1, x2) with
   noise on the diagonal when square, written once to device memory.
 - ``kmv_dense`` (B2, ``csrc/kmv.cu``) replaces ``_kmv_body``: any (x1, x2);
-  the square case adds noise on the global diagonal. A row tile's block
-  sweeps the column tiles with its accumulators in registers; when there are
-  too few row tiles to fill the card (the posterior mean of a 64- or
-  256-query bucket) the column sweep is split across blocks and the partial
-  sums are added in a fixed order by a second pass.
+  the square case adds noise on the global diagonal. ``kmv_dense_plan``
+  picks the design from the shape: up to 16 right-hand sides and too few
+  64-row tiles to fill the card (the posterior mean of a 64- or 256-query
+  bucket), a thread owns a query row and a block sweeps a chunk of the
+  training points from packed shared-memory records; otherwise a row tile's
+  block sweeps 64 x 64 covariance tiles built in shared memory. Either way
+  the column sweep is split across blocks when the rows alone leave SMs
+  idle, and a second grid adds the partial sums in a fixed order.
 - ``kmv_sym`` (B3, ``csrc/kmv_sym.cu``) replaces ``_kmv_sym_body``: square
   only, the plan from ``kmv_sym_plan``. Above 16 right-hand sides a block
   sweeps the whole square for 128 output rows with its accumulators in
@@ -20,31 +23,46 @@ bounds it on an H100 and how the design answers it):
   and contracting them in 3xTF32; up to 16 each upper-triangle tile is built
   once and contracted twice, its mirror half written to a slot of its own
   and the slots added in a fixed order. Deterministic, no atomics.
-- ``kgrad_dense`` (B4) and ``kgrad_sym`` (B5, ``csrc/kgrad.cu``) replace
-  ``_kgrad_body`` and ``_kgrad_sym_body``: sum_ij Kbar_ij dK_ij/dtheta for
-  the rank-(m+1) training cotangent, per-tile partial sums added in a fixed
-  order in float64. ``kgrad`` picks between them by the reference's rule.
+- ``kgrad_dense`` (B4, ``csrc/kgrad.cu``) and ``kgrad_sym`` (B5,
+  ``csrc/kgrad_sym.cu``) replace ``_kgrad_body`` and ``_kgrad_sym_body``:
+  sum_ij Kbar_ij dK_ij/dtheta for the rank-(m+1) training cotangent, partial
+  sums in float64 added in a fixed order. B4 is one block per 64 x 64 tile;
+  B5 packs its operands once and runs persistent blocks over pairs of row
+  strips of the upper triangle (``kgrad_sym_plan``). ``kgrad`` picks between
+  them by the reference's rule.
 
 All compute in plain fp32, except B3's 3xTF32 contraction above 16
 right-hand sides (hi/lo split of both operands, ~2^-22 per product; the one
-use of TF32 in the package). Inputs are pre-scaled by the ARD lengthscales
-here, outside the kernels, as the reference does.
+use of TF32 in the package).
+
+A wrapper issues no device operation of its own besides its kernel's grids
+and the allocation of the result and scratch: the kernels read the
+log-space hyperparameters from device memory, exponentiate them, and divide
+the raw coordinates by the lengthscales as they load them (``csrc/hyper.cuh``;
+the same bits as ``x / torch.exp(log_lengthscales)``). A noise or cotangent
+scale that is a device tensor is read by the kernel; a Python number or a
+CPU tensor is passed by value.
 
 Each kernel has a plain PyTorch version beside it (``gram_plain``,
 ``kmv_plain``, ``kgrad_plain``); a wrapper uses it only when its tensors lie
 on the CPU. On a CUDA tensor a wrapper launches its kernel or raises — there
 is no fallback. Each wrapper counts its kernel launches in a plain integer
 attribute (``gram.launches``, ``kmv_dense.launches``, ...): one per wrapper
-call that runs its kernel. A ``gram`` call is one CUDA grid; a ``kgrad_*``
-call two (the tiles, then the fixed-order sum); a ``kmv_dense`` call is one
-grid, or two when it splits its sweep; a ``kmv_sym`` call two or three
-whatever N (``kmv_sym_plan(...).grids``), and ``kmv_sym.grids`` adds up the
-grids its calls launched as the kernel's entry point counts them.
+call that runs its kernel. A ``gram`` call is two CUDA grids (the scaling
+prep, then the tiles; three when not square); a
+``kgrad_dense`` call two (the tiles, then the fixed-order sum), a
+``kgrad_sym`` call three (pack, strips, sum); a ``kmv_dense`` call is one
+grid, or two when it splits its sweep (``kmv_dense_plan(...).grids``); a
+``kmv_sym`` call two or three whatever N (``kmv_sym_plan(...).grids``), and
+``kmv_sym.grids`` adds up the grids its calls launched as the kernel's entry
+point counts them.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from collections.abc import Callable
 from typing import NamedTuple
 
 import torch
@@ -87,10 +105,26 @@ def _on_cpu(*tensors: Tensor | None) -> bool:
     return kind == "cpu"
 
 
-def _kernel_args(kernel: str, params: dict[str, Tensor], noise: Tensor | float | None,
-                 xs: tuple[Tensor, ...], others: tuple[Tensor, ...] = ()):
-    """Check what the CUDA kernels take and pre-scale the coordinates ``xs``.
-    Returns (kernel id, scaled xs..., variance (1,), noise (1,))."""
+class _Hyper(NamedTuple):
+    """What every CUDA entry point takes (csrc/hyper.cuh): the kernel id, the
+    log-space hyperparameters in device memory (the tensors are held here so
+    that they outlive the launch), and the lengthscales' stride in floats
+    (0: one lengthscale for every dimension)."""
+    kid: int
+    log_var: Tensor
+    log_ls: Tensor
+    ls_stride: int
+
+    def args(self) -> tuple[int, int, int]:
+        return self.log_var.data_ptr(), self.log_ls.data_ptr(), self.ls_stride
+
+
+def _kernel_args(kernel: str, params: dict[str, Tensor], xs: tuple[Tensor, ...],
+                 others: tuple[Tensor, ...] = ()) -> _Hyper:
+    """Check what the CUDA kernels take: float32, contiguous tensors, 2-D
+    coordinates ``xs`` of 1..MAX_DIM dimensions, and one log-variance and one
+    or D log-lengthscales (moved to the coordinates' device as float32 if
+    they are not there already)."""
     if kernel not in KERNEL_IDS:
         raise ValueError(f"the fused kernels support {sorted(KERNEL_IDS)}, got {kernel}")
     for t in (*xs, *others):
@@ -106,12 +140,48 @@ def _kernel_args(kernel: str, params: dict[str, Tensor], noise: Tensor | float |
     if not 1 <= d <= MAX_DIM:
         raise ValueError(f"the fused kernels take 1..{MAX_DIM} input dimensions, got {d}")
     dev = xs[0].device
-    ls = torch.exp(params["log_lengthscales"]).to(device=dev, dtype=torch.float32)
-    scaled = [(x / ls).contiguous() for x in xs]
-    var = torch.exp(params["log_variance"]).to(device=dev, dtype=torch.float32).reshape(1)
-    nz = (torch.zeros(1, dtype=torch.float32, device=dev) if noise is None else
-          torch.as_tensor(noise, dtype=torch.float32, device=dev).reshape(1))
-    return (KERNEL_IDS[kernel], *scaled, var.contiguous(), nz.contiguous())
+    log_var = params["log_variance"].to(device=dev, dtype=torch.float32)
+    log_ls = params["log_lengthscales"].to(device=dev, dtype=torch.float32).reshape(-1)
+    if log_var.numel() != 1 or log_ls.numel() not in (1, d):
+        raise ValueError(f"the fused kernels take one log_variance and 1 or {d} "
+                         f"log_lengthscales, got {tuple(log_var.shape)} and {tuple(log_ls.shape)}")
+    return _Hyper(KERNEL_IDS[kernel], log_var, log_ls,
+                  log_ls.stride(0) if log_ls.numel() > 1 else 0)
+
+
+def _scalar_arg(value: Tensor | float | None, dev: torch.device) -> tuple[Tensor | None, float]:
+    """A scalar as the CUDA entry points take it: (a one-element float32
+    tensor on ``dev`` for the kernel to read, 0.0), or (None, the value)
+    for a Python number, a CPU tensor or None (0.0). Reading a device tensor
+    here would wait for the device; the kernel reads it instead."""
+    if value is None:
+        return None, 0.0
+    if isinstance(value, Tensor) and value.device.type != "cpu":
+        if value.numel() != 1:
+            raise ValueError(f"expected one value, got shape {tuple(value.shape)}")
+        return value.to(device=dev, dtype=torch.float32), 0.0
+    return None, float(value)
+
+
+def _ptr(t: Tensor | None) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+@functools.cache
+def _sms(dev: torch.device) -> int:
+    """SMs of a CUDA device (looked up once per device)."""
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _launcher(fn, args: tuple, held: tuple) -> Callable[[], int]:
+    """``fn(*args)`` as a function of no arguments that returns the CUDA error
+    code and keeps ``held`` alive: the tensors behind the pointers in
+    ``args`` that the caller does not return."""
+    def launch() -> int:
+        return fn(*args)
+
+    launch.held = held
+    return launch
 
 
 def _check(rc: int, name: str) -> None:
@@ -119,37 +189,91 @@ def _check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
 
 
-def kmv_dense(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
-              x2: Tensor | None = None, noise: Tensor | float | None = None) -> Tensor:
-    """(K(x1, x2) [+ noise I when x2 is None]) @ v through kernel B2.
+#: B2 sweeps rows per thread when R is at most this and the 64-row tiles are
+#: fewer than two per SM; B3 contracts on the tensor cores (3xTF32) above it
+SYM_MAX_R = 16
+#: B2, rows design: blocks of 64 threads wanted per SM (the column sweep is
+#: cut into as many chunks as give that many, at least 64 points each)
+ROWS_DEPTH = 16
 
-    x1 (N1, D), x2 (N2, D), v (N2, R) -> (N1, R) float32."""
-    square = x2 is None
-    if _on_cpu(x1, v, x2):
-        return kmv_plain(kernel, params, x1, v, x2=x2, noise=noise if square else None)
+
+class KmvPlan(NamedTuple):
+    """How ``kmv_dense`` runs one call (csrc/kmv.cu reads the same fields).
+
+    ``rows``: a thread per query row sweeping packed records, else 64 x 64
+    tiles in shared memory. ``splits``: blocks along the column sweep.
+    ``parts``: float32 elements of scratch for their partial sums (0 without
+    a split). ``grids``: CUDA grids per call."""
+    rows: bool
+    splits: int
+    parts: int
+    grids: int
+
+
+@functools.cache
+def kmv_dense_plan(n1: int, n2: int, r: int, sms: int = 132) -> KmvPlan:
+    """The plan of one ``kmv_dense`` call on x1 (n1, d), x2 (n2, d), v (n2, r)
+    on a card of ``sms`` SMs. The rows design takes every call of at most
+    SYM_MAX_R right-hand sides whose 64-row tiles number fewer than two per
+    SM (so the tiles alone could not fill the card), and cuts the column
+    sweep into chunks of whole 64-point stages, as many as put ROWS_DEPTH
+    blocks on each SM. Every other shape takes the tiled design, whose sweep
+    is split over two blocks per SM when the row tiles are fewer."""
+    tiles1, tiles2 = -(-n1 // TILE), -(-n2 // TILE)
+    rows = r <= SYM_MAX_R and tiles1 < 2 * sms
+    if rows:
+        per = -(-tiles2 // -(-ROWS_DEPTH * sms // tiles1))
+        splits = -(-tiles2 // per)
+    else:
+        row_blocks = tiles1 * -(-r // (256 if r > 64 else 64 if r > 16 else 16))
+        splits = max(1, min(tiles2, -(-2 * sms // row_blocks)))
+    return KmvPlan(rows, splits, splits * n1 * r if splits > 1 else 0, 1 + (splits > 1))
+
+
+def _kmv_dense_cuda(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
+                    x2: Tensor | None, noise: Tensor | float | None,
+                    plan: KmvPlan | None = None) -> tuple[Callable[[], int], Tensor]:
+    """B2 on CUDA tensors: checks, allocates, and returns (launch, out);
+    ``launch()`` enqueues the call's grids and returns the CUDA error code.
+    ``plan``: another plan of the same function than ``kmv_dense_plan``'s
+    (examples/torch_kgrad_timing.py times the tiled design at the shapes the
+    rows design serves)."""
     from gpras_tpu_torch.ops._build import library
 
+    square = x2 is None
     xb = x1 if square else x2
-    if xb.shape[0] != v.shape[0]:
-        raise ValueError(f"v has {v.shape[0]} rows, x2 has {xb.shape[0]}")
     if v.dim() != 2:
         raise ValueError(f"v must be 2-D, got shape {tuple(v.shape)}")
-    kid, a, b, var, nz = _kernel_args(kernel, params, noise if square else None, (x1, xb), (v,))
-    n1, d = a.shape
-    n2, r = b.shape[0], v.shape[1]
-    out = torch.empty((n1, r), dtype=torch.float32, device=v.device)
-    # split the column sweep when the row tiles alone leave SMs idle
-    # (two blocks per SM); the partial sums are added in a fixed order
-    row_blocks = -(-n1 // TILE) * -(-r // (256 if r > 64 else 64 if r > 16 else 16))
-    sms = torch.cuda.get_device_properties(v.device).multi_processor_count
-    splits = max(1, min(-(-n2 // TILE), -(-2 * sms // row_blocks)))
-    parts = (torch.empty((splits, n1, r), dtype=torch.float32, device=v.device)
-             if splits > 1 else out)
-    stream = torch.cuda.current_stream(v.device).cuda_stream
-    rc = library().gpras_kmv_dense(kid, a.data_ptr(), b.data_ptr(), v.data_ptr(),
-                                   out.data_ptr(), parts.data_ptr(), var.data_ptr(),
-                                   nz.data_ptr(), n1, n2, d, r, int(square), splits,
-                                   stream)
+    if xb.shape[0] != v.shape[0]:
+        raise ValueError(f"v has {v.shape[0]} rows, x2 has {xb.shape[0]}")
+    hyp = _kernel_args(kernel, params, (x1, xb), (v,))
+    if xb.shape[1] != x1.shape[1]:
+        raise ValueError(f"x1 has {x1.shape[1]} dimensions, x2 has {xb.shape[1]}")
+    dev = v.device
+    nz, nz_value = _scalar_arg(noise if square else None, dev)
+    (n1, d), n2, r = x1.shape, xb.shape[0], v.shape[1]
+    if plan is None:
+        plan = kmv_dense_plan(n1, n2, r, _sms(dev))
+    out = torch.empty((n1, r), dtype=torch.float32, device=dev)
+    parts = torch.empty(plan.parts, dtype=torch.float32, device=dev) if plan.parts else out
+    fn = library().gpras_kmv_dense
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    args = (hyp.kid, x1.data_ptr(), xb.data_ptr(), v.data_ptr(), out.data_ptr(),
+            parts.data_ptr(), *hyp.args(), _ptr(nz), nz_value, n1, n2, d, r, int(square),
+            int(plan.rows), plan.splits, stream)
+    return _launcher(fn, args, (hyp, nz, parts)), out
+
+
+def kmv_dense(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
+              x2: Tensor | None = None, noise: Tensor | float | None = None) -> Tensor:
+    """(K(x1, x2) [+ noise I when x2 is None]) @ v through kernel B2, as
+    ``kmv_dense_plan`` plans it.
+
+    x1 (N1, D), x2 (N2, D), v (N2, R) -> (N1, R) float32."""
+    if _on_cpu(x1, v, x2):
+        return kmv_plain(kernel, params, x1, v, x2=x2, noise=noise if x2 is None else None)
+    launch, out = _kmv_dense_cuda(kernel, params, x1, v, x2, noise)
+    rc = launch()
     kmv_dense.launches += 1
     _check(rc, "kmv_dense")
     return out
@@ -158,8 +282,6 @@ def kmv_dense(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
 kmv_dense.launches = 0
 
 
-#: above this many right-hand sides B3 contracts on the tensor cores (3xTF32)
-SYM_MAX_R = 16
 SYM_ROWS = 128   # B3, tensor-core build: output rows per block; N is padded to it
 SYM_STAGE = 32   # B3, tensor-core build: column points per shared-memory stage
 
@@ -200,6 +322,7 @@ def _tc_plan(n: int, d: int, r: int, splits: int) -> SymPlan:
                    2 + (splits > 1))
 
 
+@functools.cache
 def kmv_sym_plan(n: int, d: int, r: int, sms: int = 132) -> SymPlan:
     """The plan of one ``kmv_sym`` call on x (n, d), v (n, r) on a card of
     ``sms`` SMs (132: H100): the tensor-core build above SYM_MAX_R
@@ -229,9 +352,8 @@ def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
     x (N, D), v (N, R) -> (N, R) float32."""
     if _on_cpu(x, v):
         return kmv_plain(kernel, params, x, v, noise=noise)
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    return _kmv_sym_run(kmv_sym_plan(x.shape[0], x.shape[1], v.shape[1], sms), kernel, params,
-                        x, v, noise)
+    return _kmv_sym_run(kmv_sym_plan(x.shape[0], x.shape[1], v.shape[1], _sms(x.device)), kernel,
+                        params, x, v, noise)
 
 
 def _kmv_sym_run(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
@@ -240,26 +362,29 @@ def _kmv_sym_run(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tenso
     of the same function that examples/torch_kmv_sym_timing.py times)."""
     from gpras_tpu_torch.ops._build import library
 
-    if x.shape[0] != v.shape[0]:
-        raise ValueError(f"v has {v.shape[0]} rows, x has {x.shape[0]}")
     if v.dim() != 2:
         raise ValueError(f"v must be 2-D, got shape {tuple(v.shape)}")
-    kid, a, var, nz = _kernel_args(kernel, params, noise, (x,), (v,))
-    n, d = a.shape
-    r = v.shape[1]
+    if x.shape[0] != v.shape[0]:
+        raise ValueError(f"v has {v.shape[0]} rows, x has {x.shape[0]}")
+    hyp = _kernel_args(kernel, params, (x,), (v,))
+    (n, d), r = x.shape, v.shape[1]
     dev = v.device
+    nz, nz_value = _scalar_arg(noise, dev)
     out = torch.empty((n, r), dtype=torch.float32, device=dev)
-    xp = torch.empty(plan.npad * plan.dp, dtype=torch.float32, device=dev)
-    nrm = torch.empty(plan.npad, dtype=torch.float32, device=dev)
-    vbuf = torch.empty(plan.vbuf, dtype=torch.float32, device=dev)
-    parts = torch.empty(plan.parts, dtype=torch.float32, device=dev) if plan.parts else out
+    # one scratch allocation: padded coordinates, norms, V's layout, partial
+    # sums; every piece a multiple of 4 floats, so each starts 16-byte aligned
+    sizes = (plan.npad * plan.dp, plan.npad, plan.vbuf, plan.parts)
+    scratch = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    xp = scratch.data_ptr()
+    nrm = xp + 4 * sizes[0]
+    vbuf = nrm + 4 * sizes[1]
+    parts = vbuf + 4 * sizes[2] if plan.parts else out.data_ptr()
     grids = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = library().gpras_kmv_sym(kid, a.data_ptr(), v.data_ptr(), out.data_ptr(), xp.data_ptr(),
-                                 nrm.data_ptr(), vbuf.data_ptr(), parts.data_ptr(),
-                                 var.data_ptr(), nz.data_ptr(), n, d, r, plan.npad, plan.dp,
-                                 plan.width, int(plan.tc), plan.splits, ctypes.byref(grids),
-                                 stream)
+    rc = library().gpras_kmv_sym(hyp.kid, x.data_ptr(), v.data_ptr(), out.data_ptr(), xp, nrm,
+                                 vbuf, parts, *hyp.args(), _ptr(nz), nz_value, n, d, r,
+                                 plan.npad, plan.dp, plan.width, int(plan.tc), plan.splits,
+                                 ctypes.byref(grids), stream)
     kmv_sym.launches += 1
     kmv_sym.grids += grids.value
     _check(rc, "kmv_sym")
@@ -294,14 +419,20 @@ def gram(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None =
         return gram_plain(kernel, params, x1, x2, noise)
     from gpras_tpu_torch.ops._build import library
 
-    kid, *scaled, var, nz = _kernel_args(kernel, params, noise if square else None,
-                                         (x1,) if square else (x1, x2))
-    a, b = scaled[0], scaled[-1]
-    out = torch.empty((a.shape[0], b.shape[0]), dtype=torch.float32, device=a.device)
-    stream = torch.cuda.current_stream(a.device).cuda_stream
-    rc = library().gpras_gram(kid, a.data_ptr(), b.data_ptr(), out.data_ptr(), var.data_ptr(),
-                              nz.data_ptr(), a.shape[0], b.shape[0], a.shape[1], int(square),
-                              stream)
+    xb = x1 if square else x2
+    hyp = _kernel_args(kernel, params, (x1, xb))
+    if xb.shape[1] != x1.shape[1]:
+        raise ValueError(f"x1 has {x1.shape[1]} dimensions, x2 has {xb.shape[1]}")
+    dev = x1.device
+    nz, nz_value = _scalar_arg(noise if square else None, dev)
+    out = torch.empty((x1.shape[0], xb.shape[0]), dtype=torch.float32, device=dev)
+    # scratch for the coordinates divided by the lengthscales (the prep grid)
+    scaled = torch.empty(x1.numel() + (0 if square else xb.numel()), dtype=torch.float32,
+                         device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = library().gpras_gram(hyp.kid, x1.data_ptr(), xb.data_ptr(), out.data_ptr(),
+                              scaled.data_ptr(), *hyp.args(), _ptr(nz), nz_value, x1.shape[0],
+                              xb.shape[0], x1.shape[1], int(square), stream)
     gram.launches += 1
     _check(rc, "gram")
     return out
@@ -341,12 +472,75 @@ def kgrad_plain(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z:
     return grads
 
 
-def _kgrad(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor,
-           z: Tensor, alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
-    if _on_cpu(x, w, z, alpha):
-        grads = kgrad_plain(kernel, params, x, w, z, alpha, g, inv_m)
-        return {"log_variance": grads["log_variance"],
-                "log_lengthscales": grads["log_lengthscales"]}
+#: B5: blocks wanted per SM over the whole sweep (its segments are cut so
+#: that the blocks run that many deep, 16 waves of the 4 resident per SM) and
+#: the fewest tiles a segment holds
+KGRAD_DEPTH = 64
+KGRAD_MIN_TILES = 4
+SMEM_BYTES = 227 * 1024  # shared memory one block may use on an H100
+
+
+class KgradPlan(NamedTuple):
+    """How ``kgrad_sym`` runs one call (csrc/kgrad_sym.cu reads the same
+    fields). ``nb`` row strips of 64 points pair up (p with nb - 1 - p) into
+    ``pairs`` sequences of nb + 1 upper-triangle tiles (the middle strip of an
+    odd nb is alone, (nb + 1) / 2 tiles), each cut into ``segs`` segments of
+    ``per`` tiles, one block each. ``dp``: D padded to a multiple of 8
+    (zeros); the sweep repeats per 8 dimensions (``dp // 8`` times).
+    ``fields``: floats per packed point (dp + 2 m + 1). ``stages``: column
+    tiles in flight in a block's shared-memory ring. Scratch: ``pack`` float32
+    elements, ``partial`` float64 elements. ``grids``: CUDA grids per call."""
+    nb: int
+    pairs: int
+    segs: int
+    per: int
+    dp: int
+    fields: int
+    stages: int
+    pack: int
+    partial: int
+    grids: int
+
+
+@functools.cache
+def kgrad_sym_plan(n: int, d: int, m: int, sms: int = 132, per: int | None = None) -> KgradPlan:
+    """The plan of one ``kgrad_sym`` call on x (n, d), w and z (n, m) on a
+    card of ``sms`` SMs. ``per``: tiles per segment, by default as many as
+    leave KGRAD_DEPTH blocks per SM, at least KGRAD_MIN_TILES. The ring is
+    three stages deep while four blocks with their row side then fit an
+    SM's shared memory, else as deep as one block's share allows."""
+    nb = -(-n // TILE)
+    pairs = (nb + 1) // 2
+    dp = -(-d // 8) * 8
+    fields = dp + 2 * m + 1
+    if per is None:
+        per = max(KGRAD_MIN_TILES, -(-(nb + 1) // -(-KGRAD_DEPTH * sms // pairs)))
+    segs = -(-(nb + 1) // per)
+    per = -(-(nb + 1) // segs)  # as the kernel's entry point derives it
+    tile_bytes = fields * TILE * 4
+    if 4 * 4 * tile_bytes <= SMEM_BYTES:
+        stages = 3
+    elif 3 * tile_bytes <= SMEM_BYTES:
+        stages = 2
+    elif 2 * tile_bytes <= SMEM_BYTES:
+        stages = 1
+    else:
+        raise ValueError(f"kgrad_sym: {fields} floats per point (D = {d}, m = {m}) do not fit "
+                         "a block's shared memory twice")
+    return KgradPlan(nb, pairs, segs, per, dp, fields, stages, nb * fields * TILE,
+                     (1 + dp) * pairs * segs, 3)
+
+
+def _kgrad_cuda(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor,
+                z: Tensor, alpha: Tensor, g: Tensor | float, inv_m: float,
+                plan: KgradPlan | None = None,
+                tiles: bool = False) -> tuple[Callable[[], int], Tensor]:
+    """B4 (``sym`` False) or B5 on CUDA tensors: checks, allocates, and
+    returns (launch, out (1 + D,) float32); ``launch()`` enqueues the call's
+    grids and returns the CUDA error code. ``plan``: another plan than
+    ``kgrad_sym_plan``'s; ``tiles``: B5's first port, one block per upper
+    tile (csrc/kgrad.cu), which examples/torch_kgrad_timing.py times beside
+    the strips."""
     from gpras_tpu_torch.ops._build import library
 
     n, m = w.shape
@@ -356,23 +550,42 @@ def _kgrad(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tens
                          f"{tuple(alpha.shape)}")
     if not 1 <= m <= MAX_PROBES:
         raise ValueError(f"kgrad takes 1..{MAX_PROBES} probe columns, got {m}")
-    kid, a, var, _ = _kernel_args(kernel, params, None, (x,), (w, z, alpha))
-    dev = a.device
-    gh = 0.5 * torch.as_tensor(g, dtype=torch.float32, device=dev).reshape(1)
-    scal = torch.cat([var, gh, torch.full((1,), inv_m, dtype=torch.float32, device=dev)])
-    nb = -(-n // TILE)
-    tiles = nb * (nb + 1) // 2 if sym else nb * nb  # kgrad.cu: kgrad_tiles
-    d = a.shape[1]
-    partial = torch.empty((d + 1) * tiles, dtype=torch.float64, device=dev)
-    out = torch.empty(d + 1, dtype=torch.float64, device=dev)
+    hyp = _kernel_args(kernel, params, (x,), (w, z, alpha))
+    dev = x.device
+    d = x.shape[1]
+    gt, g_value = _scalar_arg(g, dev)
+    out = torch.empty(d + 1, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = library().gpras_kgrad(kid, a.data_ptr(), w.data_ptr(), z.data_ptr(), alpha.data_ptr(),
-                               scal.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, m,
-                               int(sym), stream)
+    head = (hyp.kid, x.data_ptr(), w.data_ptr(), z.data_ptr(), alpha.data_ptr(), *hyp.args(),
+            _ptr(gt), g_value, float(inv_m))
+    if sym and not tiles:
+        if plan is None:
+            plan = kgrad_sym_plan(n, d, m, _sms(dev))
+        pack = torch.empty(plan.pack, dtype=torch.float32, device=dev)
+        partial = torch.empty(plan.partial, dtype=torch.float64, device=dev)
+        return _launcher(library().gpras_kgrad_sym,
+                         (*head, pack.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d,
+                          plan.dp, m, plan.segs, plan.stages, stream),
+                         (hyp, gt, pack, partial)), out
+    nb = -(-n // TILE)
+    slots = nb * (nb + 1) // 2 if sym else nb * nb  # kgrad.cu: kgrad_tiles
+    partial = torch.empty((d + 1) * slots, dtype=torch.float64, device=dev)
+    return _launcher(library().gpras_kgrad,
+                     (*head, partial.data_ptr(), out.data_ptr(), n, d, m, int(sym), stream),
+                     (hyp, gt, partial)), out
+
+
+def _kgrad(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor,
+           z: Tensor, alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
+    if _on_cpu(x, w, z, alpha):
+        grads = kgrad_plain(kernel, params, x, w, z, alpha, g, inv_m)
+        return {"log_variance": grads["log_variance"],
+                "log_lengthscales": grads["log_lengthscales"]}
+    launch, out = _kgrad_cuda(sym, kernel, params, x, w, z, alpha, g, inv_m)
+    rc = launch()
     wrapper = kgrad_sym if sym else kgrad_dense
     wrapper.launches += 1
     _check(rc, wrapper.__name__)
-    out = out.to(x.dtype)
     return {"log_variance": out[0], "log_lengthscales": out[1:]}
 
 
@@ -389,7 +602,8 @@ def kgrad_dense(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z:
 def kgrad_sym(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z: Tensor,
               alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
     """The same contraction over upper-triangle tiles with the folded
-    cotangent Kbar_ij + Kbar_ji^T, through kernel B5."""
+    cotangent Kbar_ij + Kbar_ji^T, through kernel B5, as ``kgrad_sym_plan``
+    plans it."""
     return _kgrad(True, kernel, params, x, w, z, alpha, g, inv_m)
 
 

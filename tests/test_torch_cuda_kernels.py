@@ -50,8 +50,10 @@ def _f64(params):
     return {k: v.double() for k, v in params.items()}
 
 
-# R picks the build: 1 column per thread up to R = 16, 4 up to 64, 16 above;
-# each build is held against plain at a ragged and (where it has one) a full R
+# R picks the build: up to R = 16 the rows design (these 32 row tiles are
+# fewer than two per SM), above it the tiled one with 4 columns per thread up
+# to 64 and 16 above; each is held against plain at a ragged and (where it has
+# one) a full R
 @pytest.mark.parametrize("r", [1, 7, 33, 64, 70, 300])
 @pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
 def test_kmv_dense_matches_plain(device, kernel, r):
@@ -61,6 +63,82 @@ def test_kmv_dense_matches_plain(device, kernel, r):
     torch.cuda.synchronize()
     err = (got.double() - want).abs().max().item()
     assert err <= TOL * want.abs().max().item(), err
+
+
+# B2's rows design (a thread per query row, R <= 16): its four widths of V
+# (1, 4, 8, 16 columns in registers, ragged at 3 and 7), query counts from one
+# row to several ragged blocks of 64, cross and square (noise on the global
+# diagonal, whichever chunk holds it), all five covariances; 2,003 training
+# points are 32 stages of 64, the last ragged
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("r", [1, 3, 7, 16])
+@pytest.mark.parametrize("n1", [1, 17, 64, 300])
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_kmv_dense_rows_matches_plain(device, kernel, n1, r, square):
+    n2 = n1 if square else 2003
+    params, x1, x2, v = _inputs(device, n1, n2, 8, r, seed=100 + n1 + r)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert fused_gram.kmv_dense_plan(n1, n2, r, sms).rows
+    if square:
+        got = fused_gram.kmv_dense(kernel, params, x1, v, noise=torch.tensor(0.3, device=device))
+        want = fused_gram.kmv_plain(kernel, _f64(params), x1.double(), v.double(), noise=0.3)
+    else:
+        got = fused_gram.kmv_dense(kernel, params, x1, v, x2=x2)
+        want = fused_gram.kmv_plain(kernel, _f64(params), x1.double(), v.double(),
+                                    x2=x2.double())
+    torch.cuda.synchronize()
+    assert (got.double() - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+# the rows design past 8 input dimensions (a row's further coordinates live in
+# shared memory) and at one dimension; one shared lengthscale for all
+@pytest.mark.parametrize("d", [1, 9, 16, 128])
+@pytest.mark.parametrize("r", [1, 7])
+def test_kmv_dense_rows_matches_plain_other_dimensions(device, r, d):
+    params, x1, x2, v = _inputs(device, 300, 2003, d, r, seed=200 + d + r)
+    x1, x2 = (x1 * (4.0 / d) ** 0.5).contiguous(), (x2 * (4.0 / d) ** 0.5).contiguous()
+    if d == 16:
+        params["log_lengthscales"] = torch.tensor(0.2, device=device)
+    got = fused_gram.kmv_dense("Matern52", params, x1, v, x2=x2)
+    want = fused_gram.kmv_plain("Matern52", _f64(params), x1.double(), v.double(), x2=x2.double())
+    torch.cuda.synchronize()
+    assert (got.double() - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+# coincident points: a query that is a training point has r2 == 0 exactly
+# (the norms and the dot share one FMA chain), so Matern12 and Exponential,
+# linear in r there, agree with float64 as closely as anywhere else
+@pytest.mark.parametrize("kernel", ["Matern12", "Exponential", "Matern52"])
+def test_kmv_dense_rows_coincident_points(device, kernel):
+    params, _, x2, v = _inputs(device, 64, 2003, 8, 1, seed=9)
+    x1 = x2[:200].clone()
+    v = torch.zeros_like(v)
+    v[:200] = 1.0  # only the coincident (and nearby) columns count
+    got = fused_gram.kmv_dense(kernel, params, x1, v, x2=x2)
+    want = fused_gram.kmv_plain(kernel, _f64(params), x1.double(), v.double(), x2=x2.double())
+    torch.cuda.synchronize()
+    assert (got.double() - want).abs().max().item() <= 1e-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("n1, r", [(256, 1), (300, 7), (64, 16)])
+def test_kmv_dense_is_deterministic(device, n1, r):
+    params, x1, x2, v = _inputs(device, n1, 5003, 8, r, seed=8)
+    a = fused_gram.kmv_dense("Matern52", params, x1, v, x2=x2)
+    b = fused_gram.kmv_dense("Matern52", params, x1, v, x2=x2)
+    assert torch.equal(a, b)
+
+
+# the two designs of B2 compute one function: the tiled design, forced at a
+# shape the rows design serves, agrees with it to fp32 rounding
+@pytest.mark.parametrize("r", [1, 16])
+def test_kmv_dense_designs_agree(device, r):
+    params, x1, x2, v = _inputs(device, 256, 5003, 8, r, seed=12)
+    rows = fused_gram.kmv_dense("Matern52", params, x1, v, x2=x2)
+    launch, tiled = fused_gram._kmv_dense_cuda(
+        "Matern52", params, x1, v, x2, None, plan=fused_gram.KmvPlan(False, 33, 33 * 256 * r, 2))
+    assert launch() == 0
+    torch.cuda.synchronize()
+    assert (rows - tiled).abs().max().item() <= 1e-5 * rows.abs().max().item()
 
 
 # B3's builds and their edges: the symmetric build up to R = 16 (1 or 4
@@ -208,6 +286,68 @@ def test_kgrad_matches_plain(device, kernel, sym, n):
     assert (got_v - want_v).abs().max().item() <= TOL * want_v.abs().max().item(), (got_v, want_v)
 
 
+# B5's strips: ragged N just past where ``kgrad`` picks it (3,585), probe
+# counts 1, 7, 16, one input dimension, eight, and more than eight (a second
+# pass over the sweep for dimensions 8..), all five covariances at the
+# training shape's D and m; against the plain version and against B4, which
+# computes the same sum over every tile
+@pytest.mark.parametrize("n, d, m", [(3585, 8, 16), (5003, 8, 7), (2003, 8, 1), (2003, 1, 16),
+                                     (2003, 11, 5), (1999, 20, 16), (50, 3, 2)])
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_kgrad_sym_strips_match_plain(device, kernel, n, d, m):
+    params, x, w, z, alpha = _kgrad_inputs(device, n, d, m, seed=n + d + m)
+    x = (x * (4.0 / d) ** 0.5).contiguous()
+    got = fused_gram.kgrad_sym(kernel, params, x, w, z, alpha, 1.7, 1.0 / m)
+    dense = fused_gram.kgrad_dense(kernel, params, x, w, z, alpha, 1.7, 1.0 / m)
+    want = fused_gram.kgrad_plain(kernel, _f64(params), x.double(), w.double(), z.double(),
+                                  alpha.double(), 1.7, 1.0 / m)
+    torch.cuda.synchronize()
+    want_v = torch.cat([want["log_variance"].reshape(1), want["log_lengthscales"]])
+    for res in (got, dense):
+        res_v = torch.cat([res["log_variance"].reshape(1), res["log_lengthscales"]]).double()
+        assert (res_v - want_v).abs().max().item() <= TOL * want_v.abs().max().item()
+
+
+# coincident points: every point twice. Matern12's and Exponential's f' ~ 1/r
+# is zeroed below r2 = 1e-12; without that guard (or with an r2 that is not
+# exactly 0 for a point against itself) the lengthscale gradient is garbage
+@pytest.mark.parametrize("kernel", ["Matern12", "Exponential", "Matern32"])
+@pytest.mark.parametrize("cotangent_on_device", [False, True])
+def test_kgrad_sym_coincident_points(device, kernel, cotangent_on_device):
+    params, x, w, z, alpha = _kgrad_inputs(device, 2000, 8, 16, seed=21)
+    x = torch.cat([x[:1000], x[:1000]]).contiguous()
+    g = torch.tensor(0.9, device=device) if cotangent_on_device else 0.9
+    got = fused_gram.kgrad_sym(kernel, params, x, w, z, alpha, g, 1.0 / 16)
+    want = fused_gram.kgrad_plain(kernel, _f64(params), x.double(), w.double(), z.double(),
+                                  alpha.double(), 0.9, 1.0 / 16)
+    torch.cuda.synchronize()
+    got_v = torch.cat([got["log_variance"].reshape(1), got["log_lengthscales"]]).double()
+    want_v = torch.cat([want["log_variance"].reshape(1), want["log_lengthscales"]])
+    assert torch.isfinite(got_v).all()
+    assert (got_v - want_v).abs().max().item() <= TOL * want_v.abs().max().item()
+
+
+# any segment length gives the same sum (to float64 rounding of the partials'
+# order): one tile a block, the plan's, and one block per strip pair; and the
+# first port (a block per tile) agrees too
+def test_kgrad_sym_segment_lengths_agree(device):
+    params, x, w, z, alpha = _kgrad_inputs(device, 5003, 8, 16, seed=31)
+    common = ("Matern52", params, x, w, z, alpha, 1.1, 1.0 / 16)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    outs = []
+    for per in (1, None, 1000):
+        plan = fused_gram.kgrad_sym_plan(5003, 8, 16, sms, per=per)
+        launch, out = fused_gram._kgrad_cuda(True, *common, plan=plan)
+        assert launch() == 0
+        outs.append(out)
+    launch, first = fused_gram._kgrad_cuda(True, *common, tiles=True)
+    assert launch() == 0
+    torch.cuda.synchronize()
+    scale = outs[1].abs().max().item()
+    for out in (outs[0], outs[2], first):
+        assert (out - outs[1]).abs().max().item() <= 1e-6 * scale
+
+
 def test_kgrad_sym_is_deterministic(device):
     params, x, w, z, alpha = _kgrad_inputs(device, 5003, 8, 16, seed=5)
     a = fused_gram.kgrad_sym("Matern52", params, x, w, z, alpha, 0.9, 1.0 / 16)
@@ -241,3 +381,49 @@ def test_wrappers_raise_on_what_the_kernels_do_not_take(device):
         fused_gram.gram("Periodic", params, x)
     with pytest.raises(TypeError):
         fused_gram.kgrad("RBF", params, x, v.double(), v.double(), v[:, 0].double(), 1.0, 0.25)
+    with pytest.raises(ValueError, match="devices"):
+        fused_gram.kgrad_sym("RBF", params, x, v, v.cpu(), v[:, 0], 1.0, 0.25)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gram.kgrad_sym("RBF", params, x, v, v, torch.zeros(600, device=device)[::2],
+                             1.0, 0.25)
+    with pytest.raises(ValueError, match="kgrad takes"):
+        fused_gram.kgrad_sym("RBF", params, x, v, v[:, :2].contiguous(), v[:, 0].contiguous(),
+                             1.0, 0.25)
+    with pytest.raises(ValueError, match="dimensions"):
+        fused_gram.kmv_dense("RBF", params, x, v, x2=x[:, :2].contiguous())
+    with pytest.raises(ValueError, match="log_lengthscales"):
+        fused_gram.kmv_dense("RBF", {**params, "log_lengthscales": params["log_lengthscales"][:2]},
+                             x, v)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_gram.kmv_dense("RBF", params, x, v, x2=x.t().contiguous().t())
+
+
+# the hyperparameters go to the kernels in log space and are exponentiated
+# there; a lengthscale tensor that is a strided view, one shared lengthscale,
+# and noise as a device tensor, a CPU tensor or a number give the same bits
+def test_wrappers_take_hyperparameters_in_any_layout(device):
+    params, x, _, v = _inputs(device, 700, 700, 4, 3, seed=14)
+    base = fused_gram.kmv_dense("Matern52", params, x, v, noise=0.3)
+    wide = torch.zeros(8, device=device)
+    wide[::2] = params["log_lengthscales"]
+    strided = {**params, "log_lengthscales": wide[::2]}
+    for p, noise in ((strided, 0.3), (params, torch.tensor(0.3)),
+                     (params, torch.tensor(0.3, device=device))):
+        assert torch.equal(fused_gram.kmv_dense("Matern52", p, x, v, noise=noise), base)
+    one = {**params, "log_lengthscales": torch.tensor(0.1, device=device)}
+    four = {**params, "log_lengthscales": torch.full((4,), 0.1, device=device)}
+    for fn in (fused_gram.kmv_dense, fused_gram.kmv_sym):
+        assert torch.equal(fn("RBF", one, x, v, noise=0.2), fn("RBF", four, x, v, noise=0.2))
+    assert torch.equal(fused_gram.gram("RBF", one, x), fused_gram.gram("RBF", four, x))
+
+
+# the kernels scale the coordinates as PyTorch would: B1 on raw inputs equals
+# B1 on inputs divided by the lengthscales beforehand with unit lengthscales,
+# bit for bit (IEEE division, and expf is torch.exp's function)
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_gram_scales_as_pytorch_does(device, kernel):
+    params, x1, x2, _ = _inputs(device, 1000, 900, 5, 1, seed=17)
+    ls = torch.exp(params["log_lengthscales"])
+    unit = {**params, "log_lengthscales": torch.zeros(5, device=device)}
+    got = fused_gram.gram(kernel, params, x1, x2)
+    assert torch.equal(got, fused_gram.gram(kernel, unit, x1 / ls, x2 / ls))
