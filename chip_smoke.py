@@ -15,8 +15,12 @@ every CUDA kernel on those paths:
    B2 and B3 also beside torch.matmul on a Gram prebuilt by B1 (fp32, no
    TF32: the library call a user could make instead), B3's CUDA grids
    per call as its entry point counts them, held to the wrapper's plan, and
-   for B2, B4 and B5 the time of the CUDA grids alone (many launches of the
-   prepared call between two events) beside the whole wrapper call
+   for B1, B2, B4 and B5 the time of the CUDA grids alone (many launches of
+   the prepared call between two events) beside the whole wrapper call; B1
+   also against its first design (a block per 64 x 128 tile of the whole
+   output), which must give the same bits, and beside the card's store
+   ceiling (torch's fill_ of the same 9.66 GB, timed in turns with B1's
+   grids)
 3. serving: write a checkpoint and two EOF preprocessors with the port, load
    them in PosteriorPredictor(device="cuda"), answer two LF-field requests,
    and show through the launch counters that B2 and B3 ran (and how many
@@ -229,8 +233,9 @@ def phase_kernels():
         """``want``: the float64 plain result, or a function of the kernel's
         result that returns (max error, scale). ``library``: a function that
         sets up the library call (untimed) and returns it, to be timed beside
-        the kernel. ``grids``: the prepared call's launch function (the CUDA
-        grids without the wrapper), timed many per event pair."""
+        the kernel. ``grids``: a function that prepares the call and returns
+        (its launch function, its output): the CUDA grids without the
+        wrapper, timed many per event pair into that output."""
         got = run()
         if callable(want):
             err, scale = want(got)
@@ -248,7 +253,12 @@ def phase_kernels():
                 ms = cuda_ms(run, reps=21)
             bound_ms, bound_by = bound(*work)
             calls = 200 if ms < 1.0 else 5
-            grids_ms = None if grids is None else cuda_ms(grids, calls=calls)
+            grids_ms = None
+            if grids is not None:
+                launch, _out = grids()
+                grids_ms = cuda_ms(launch, calls=calls)
+                del launch, _out
+                torch.cuda.empty_cache()
             library_ms = library_queued_ms = None
             if library is not None:
                 call = library()
@@ -289,18 +299,59 @@ def phase_kernels():
         return err, scale
 
     for kernel in K.STATIONARY_KERNELS:
-        # B1: ragged cross and square, and the training Gram K + noise I
-        for n1, n2 in [(4999, 3001), (5003, None), (N, None)]:
+        # B1: ragged cross and square (rows of 3,001 or 5,003 floats are not
+        # 16-byte aligned: the 4-byte store path; 3,000 and 5,004 are), and the
+        # training Gram K + noise I, timed; each equal bit for bit to the
+        # first design
+        for n1, n2 in [(4999, 3001), (4999, 3000), (5003, None), (5004, None), (N, None)]:
             params, x1, x2, _ = inputs(n1, n2 or n1, 1)
             x2 = None if n2 is None else x2
             nz = None if n2 else torch.tensor(1e-2, device=dev)
-            check("gram", kernel, f"{n1}x{n2 or n1}" + ("" if n2 else " +noise"),
+            shape = f"{n1}x{n2 or n1}" + ("" if n2 else " +noise")
+            timed = n1 == N
+            check("gram", kernel, shape,
                   lambda: fused_gram.gram(kernel, params, x1, x2, noise=nz),
                   lambda got: gram_error(kernel, f64(params), x1.double(),
                                          None if x2 is None else x2.double(),
                                          None if n2 else 1e-2, got),
-                  lambda: fused_gram.gram_plain(kernel, params, x1, x2, noise=nz),
-                  gram_work(n1, n2 or n1))
+                  (lambda: fused_gram.gram_plain(kernel, params, x1, x2, noise=nz))
+                  if timed else None,
+                  gram_work(n1, n2 or n1),
+                  grids=lambda: fused_gram._gram_cuda(kernel, params, x1, x2, nz))
+            got = fused_gram.gram(kernel, params, x1, x2, noise=nz)
+            launch, first = fused_gram._gram_cuda(kernel, params, x1, x2, nz, tiles=True)
+            if launch() != 0:
+                raise AssertionError(f"gram {kernel} {shape}: the first design did not launch")
+            same = torch.equal(got, first)
+            del got, first, launch
+            torch.cuda.empty_cache()
+            log(f"[kernels] gram        {kernel:11s} {shape:22s} equal bit for bit to the first "
+                f"design: {same}")
+            if not same:
+                raise AssertionError(f"gram {kernel} {shape}: not the first design's bits")
+            if timed and kernel == "Matern52":
+                # the store ceiling: fill_ of the same bytes, in turns with
+                # B1's grids (grids, fill_, fill_, grids), each warmed by
+                # three untimed calls into its own buffer, 5 calls per pair
+                buf = torch.empty((N, N), dtype=torch.float32, device=dev)
+                launch, out = fused_gram._gram_cuda(kernel, params, x1, x2, nz)
+                runs = {"grids": launch, "fill_": lambda: buf.fill_(1.0)}
+                for fn in runs.values():
+                    for _ in range(3):
+                        fn()
+                turns = {name: [] for name in runs}
+                for name in ("grids", "fill_", "fill_", "grids"):
+                    turns[name].append(cuda_ms(runs[name], calls=5))
+                del buf, launch, out, runs
+                torch.cuda.empty_cache()
+                row = report["gram"][(kernel, shape)]
+                row["store_ceiling_ms"] = min(turns["fill_"])
+                row["grids_in_turns_ms"] = turns["grids"]
+                fills, grids_t = (" / ".join(f"{t:.4f}" for t in turns[name])
+                                  for name in ("fill_", "grids"))
+                log(f"[kernels] gram        store ceiling: torch fill_ of the same "
+                    f"{4 * N * N / 1e9:.2f} GB {fills} ms, in turns with B1's grids {grids_t} ms "
+                    "(5 launches per event pair; no library call computes a stationary Gram)")
         # B2. Its rows design (R <= 16, few row tiles): 1 to 300 queries, 1, 7
         # and 16 right-hand sides, cross (3,001 points: 47 stages, the last
         # ragged) and square with noise on the diagonal; its tiled design at
@@ -326,7 +377,7 @@ def phase_kernels():
                   (lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2)) if timed else None,
                   kmv_work(n1, n2 or n1, r, False),
                   library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v),
-                  grids=fused_gram._kmv_dense_cuda(kernel, params, x1, v, x2, nz)[0]
+                  grids=(lambda: fused_gram._kmv_dense_cuda(kernel, params, x1, v, x2, nz))
                   if timed else None)
             if timed:
                 fp32_bounds[f"kmv_dense {kernel} {n1}x{n2} R={r}"] = kmv_bound_fp32(n1, n2, r,
@@ -384,8 +435,8 @@ def phase_kernels():
                   (lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / m))
                   if timed else None,
                   kgrad_work(n, d, m),
-                  grids=fused_gram._kgrad_cuda(sym, kernel, params, x, w, z, alpha, 1.3,
-                                               1.0 / m)[0] if timed else None)
+                  grids=(lambda: fused_gram._kgrad_cuda(sym, kernel, params, x, w, z, alpha, 1.3,
+                                                        1.0 / m)) if timed else None)
         torch.cuda.empty_cache()
     return report, fp32_bounds
 
@@ -787,7 +838,7 @@ def main() -> int:
                              "gpras_tpu/ops/pallas_gram.py:84 (_kmv_body)"),
                "kmv_sym": ("gpras_tpu_torch/csrc/kmv_sym.cu",
                            "gpras_tpu/ops/pallas_gram.py:152 (_kmv_sym_body, pallas_kmv :376)"),
-               "kgrad_dense": ("gpras_tpu_torch/csrc/kgrad.cu",
+               "kgrad_dense": ("gpras_tpu_torch/csrc/kgrad_dense.cu",
                                "gpras_tpu/ops/pallas_gram.py:534 (_kgrad_body, pallas_kgrad :701)"),
                "kgrad_sym": ("gpras_tpu_torch/csrc/kgrad_sym.cu",
                              "gpras_tpu/ops/pallas_gram.py:606 "
@@ -801,7 +852,7 @@ def main() -> int:
         # by B1 for the matvecs B2 and B3; null for B1, B4 and B5, which no
         # PyTorch call computes (a stationary Gram, a covariance-derivative
         # contraction). ms: the whole wrapper call, one per event pair;
-        # grids_ms (B2, B4, B5): its CUDA grids alone, many launches per pair,
+        # grids_ms (B1, B2, B4, B5): its CUDA grids alone, many launches per pair,
         # and library_queued_ms the library call timed the same way
         kernels.append({"name": name, "route": "cuda", "source": sources[name][0],
                         "replaces": sources[name][1], "launches": launches[name], **row,

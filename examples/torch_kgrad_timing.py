@@ -1,13 +1,16 @@
-"""Time B5 (``fused_gram.kgrad_sym``) and B2 (``fused_gram.kmv_dense``)
-against the designs they replaced, and a wrapper call against its grids.
+"""Time B5 (``fused_gram.kgrad_sym``), B4 (``fused_gram.kgrad_dense``) and
+B2 (``fused_gram.kmv_dense``) against the designs they replaced, and a
+wrapper call against its grids.
 
 At the training path's shape (N = 49,152 points, D = 8, m = 16 probes,
 chip_smoke.py's random inputs) this times B5's strips (csrc/kgrad_sym.cu, as
 ``kgrad_sym_plan`` plans them, and at other segment lengths with ``--per``)
 against its first port, one block per upper tile (csrc/kgrad.cu), in the
-same process and in turns: first port, strips, strips, first port. At the
-serving shapes (64 and 256 queries against N points, R = 1) it times B2's
-rows design (``kmv_dense_plan``'s, and at other depths with ``--depth``)
+same process and in turns: first port, strips, strips, first port. At
+B4's path shape (N = 3,072) it times B4's strips (``kgrad_dense_plan``'s:
+an even share of B5's folded walk per block) against its first port, one
+block per tile (csrc/kgrad.cu), in turns. At the serving shapes (64 and 256 queries
+against N points, R = 1) it times B2's rows design (``kmv_dense_plan``'s, and at other depths with ``--depth``)
 against the tiled design at the same shape, and ``torch.matmul`` on a Gram
 built once by B1. Times are of the CUDA grids alone: many launches of the
 prepared call between two CUDA events. For the planned designs and for B4
@@ -16,8 +19,9 @@ events as chip_smoke.py times it, many calls between two events, and the
 host's clock per call. Every result is held against the plain version in
 float64. ``--ptxas`` prints registers and spills of those kernels and their
 SASS instruction mix (the static count of each opcode: what a tile or a stage
-costs in issue slots); ``--profile`` runs twenty B2 wrapper calls under
-torch.profiler and prints the device's kernels, busy time and idle share.
+costs in issue slots); ``--profile`` runs twenty B4 and twenty B2 wrapper
+calls under torch.profiler and prints the device's kernels, busy time and
+idle share.
 
 Run from the repository root, on the GPU:
 
@@ -79,22 +83,22 @@ def whole_call(name: str, fn, calls: int) -> None:
 
 
 def ptxas_report(kernel: str) -> None:
-    """Registers, spills and the SASS opcode mix of B2's and B5's kernels for
+    """Registers, spills and the SASS opcode mix of B2's, B4's and B5's kernels for
     ``kernel`` (examples/torch_kmv_sym_timing.py's report, other names)."""
     from torch_kmv_sym_timing import sass_report
 
-    sass_report(kernel, ("kgrad_sym_kernel", "kgrad_kernel", "kmv_rows_kernel",
+    sass_report(kernel, ("kgrad_strips_kernel", "kgrad_kernel", "kmv_rows_kernel",
                          "kmv_dense_kernel"))
 
 
-def profile_b2(whole) -> None:
+def profile_calls(name: str, whole, calls: int = 20) -> None:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     whole()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(20):
+        for _ in range(calls):
             whole()
         torch.cuda.synchronize()
     events = sorted((e for e in prof.events() if e.device_type.name == "CUDA"),
@@ -104,9 +108,9 @@ def profile_b2(whole) -> None:
         return
     busy = sum(e.time_range.end - e.time_range.start for e in events)
     span = events[-1].time_range.end - events[0].time_range.start
-    print(f"[profile] 20 kmv_dense calls: {len(events) / 20:.1f} device kernels per call, span "
-          f"{span:.1f} us, busy {busy:.1f} us, idle share {1 - busy / span:.3f}")
-    for e in events[:len(events) // 20]:
+    print(f"[profile] {calls} {name} calls: {len(events) / calls:.1f} device kernels per call, "
+          f"span {span:.1f} us, busy {busy:.1f} us, idle share {1 - busy / span:.3f}")
+    for e in events[:len(events) // calls]:
         print(f"[profile]   {e.name[:80]:80s} {e.time_range.end - e.time_range.start:8.1f} us")
 
 
@@ -125,7 +129,8 @@ def main() -> int:
                     help="B2: other values of ROWS_DEPTH (blocks wanted per SM) to time")
     ap.add_argument("--ptxas", action="store_true",
                     help="print registers, spills and the SASS instruction mix")
-    ap.add_argument("--profile", action="store_true", help="torch.profiler on 20 B2 calls")
+    ap.add_argument("--profile", action="store_true",
+                    help="torch.profiler on 20 B4 calls and on 20 B2 calls")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_kgrad_timing: needs a CUDA device", file=sys.stderr)
@@ -159,10 +164,14 @@ def main() -> int:
         fn = fused_gram.kgrad_sym if sym else fused_gram.kgrad_dense
         calls = 5 if sym else 200
         whole_call(f"{fn.__name__} {kernel} N={nn} m={m}", lambda: fn(*common), calls)
+        if args.profile and not sym:
+            profile_calls("kgrad_dense", lambda: fn(*common))
         builds = {"planned": fused_gram._kgrad_cuda(sym, *common)}
-        if sym:
-            builds["first port (a block per tile)"] = fused_gram._kgrad_cuda(True, *common,
-                                                                             tiles=True)
+        builds["first port (a block per tile)"] = fused_gram._kgrad_cuda(sym, *common,
+                                                                         tiles=True)
+        if not sym:
+            print(f"kgrad_dense plan: {fused_gram.kgrad_dense_plan(nn, d, m, sms)}")
+        else:
             for per in args.per:
                 plan = fused_gram.kgrad_sym_plan(nn, d, m, sms, per=per)
                 builds[f"per={plan.per} segs={plan.segs}"] = fused_gram._kgrad_cuda(
@@ -218,7 +227,7 @@ def main() -> int:
               f"{events_ms(lib, 1, 7):.4f} ms (one call per event pair), "
               f"{events_ms(lib, 200):.4f} ms (200 per pair)", flush=True)
         if args.profile and n1 == 256:
-            profile_b2(whole)
+            profile_calls("kmv_dense", whole)
         del kmat, builds
     return 0
 

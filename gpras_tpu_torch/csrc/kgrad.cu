@@ -1,13 +1,15 @@
 // Fused gradient contraction for Hopper (sm_90a): the exact-GP training
 // backward's sum_ij Kbar_ij dK_ij/dtheta without any (N, N) buffer.
 //
-// Replaces the dense Pallas body of gpras_tpu/ops/pallas_gram.py's
-// pallas_kgrad (:701-791):
-//   kgrad dense (B4)     <- _kgrad_body      (:534-603, call :772)
-// and holds the first port of the symmetric body (_kgrad_sym_body :606-698),
-// one block per upper-triangle tile, which csrc/kgrad_sym.cu replaced on
-// the training path; it stays as the yardstick of
-// examples/torch_kgrad_timing.py (sym = 1 here).
+// The first port of both Pallas bodies of gpras_tpu/ops/pallas_gram.py's
+// pallas_kgrad (:701-791), one block per tile:
+//   dense (B4)      <- _kgrad_body      (:534-603, call :772)
+//   symmetric (B5)  <- _kgrad_sym_body  (:606-698, call :749; sym = 1 here)
+// csrc/kgrad_dense.cu and csrc/kgrad_sym.cu replaced them on the training
+// path (persistent blocks over strips, kgrad_strips.cuh); both stay here as
+// the yardsticks of examples/torch_kgrad_timing.py
+// (fused_gram._kgrad_cuda(..., tiles=True)).
+//
 // With a the inputs divided by the lengthscales (as they are staged),
 // u_ij = ||a_i - a_j||^2 and K = var f(u), the cotangent is the rank-(m+1) matrix
 //   Kbar = gh [(1/m) W Z^T - alpha alpha^T]          (gh = g / 2)

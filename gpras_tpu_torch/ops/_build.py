@@ -39,9 +39,11 @@ _SIGNATURES = {
     "gpras_kmv_dense": [_I, _P, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpras_kmv_sym": [_I, _P, _P, _P, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _I, _I, _I, _I,
                       ctypes.POINTER(_I), _P],
-    "gpras_gram": [_I, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _P],
+    "gpras_gram": [_I, _P, _P, _P, _P, *_HYPER, _I, _I, _I, _I, _I, _I, _I, _P],
     "gpras_kgrad": [_I, _P, _P, _P, _P, *_HYPER, _F, _P, _P, _I, _I, _I, _I, _P],
     "gpras_kgrad_sym": [_I, _P, _P, _P, _P, *_HYPER, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+    "gpras_kgrad_dense": [_I, _P, _P, _P, _P, *_HYPER, _F, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                          _P],
     "gpras_sqrt_rn": [_P, _P, ctypes.c_size_t, _P],
 }
 

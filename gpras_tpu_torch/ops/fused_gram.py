@@ -7,6 +7,9 @@ bounds it on an H100 and how the design answers it):
 
 - ``gram`` (B1, ``csrc/gram.cu``) replaces ``_tile_body``: K(x1, x2) with
   noise on the diagonal when square, written once to device memory.
+  Persistent blocks (``gram_plan``) walk 64 x 64 tiles, for a square Gram
+  only the upper triangle, each tile staged in shared memory with its
+  transpose and written out as itself and its mirror.
 - ``kmv_dense`` (B2, ``csrc/kmv.cu``) replaces ``_kmv_body``: any (x1, x2);
   the square case adds noise on the global diagonal. ``kmv_dense_plan``
   picks the design from the shape: up to 16 right-hand sides and too few
@@ -23,13 +26,14 @@ bounds it on an H100 and how the design answers it):
   and contracting them in 3xTF32; up to 16 each upper-triangle tile is built
   once and contracted twice, its mirror half written to a slot of its own
   and the slots added in a fixed order. Deterministic, no atomics.
-- ``kgrad_dense`` (B4, ``csrc/kgrad.cu``) and ``kgrad_sym`` (B5,
+- ``kgrad_dense`` (B4, ``csrc/kgrad_dense.cu``) and ``kgrad_sym`` (B5,
   ``csrc/kgrad_sym.cu``) replace ``_kgrad_body`` and ``_kgrad_sym_body``:
   sum_ij Kbar_ij dK_ij/dtheta for the rank-(m+1) training cotangent, partial
-  sums in float64 added in a fixed order. B4 is one block per 64 x 64 tile;
-  B5 packs its operands once and runs persistent blocks over pairs of row
-  strips of the upper triangle (``kgrad_sym_plan``). ``kgrad`` picks between
-  them by the reference's rule.
+  sums in float64 added in a fixed order. Both pack their operands once and
+  run persistent blocks over the strip pairs of the upper triangle
+  (csrc/kgrad_strips.cuh): B5 segments of each pair (``kgrad_sym_plan``), B4
+  an even share of the whole walk per block (``kgrad_dense_plan``).
+  ``kgrad`` picks between them by the reference's rule.
 
 All compute in plain fp32, except B3's 3xTF32 contraction above 16
 right-hand sides (hi/lo split of both operands, ~2^-22 per product; the one
@@ -48,11 +52,11 @@ Each kernel has a plain PyTorch version beside it (``gram_plain``,
 on the CPU. On a CUDA tensor a wrapper launches its kernel or raises — there
 is no fallback. Each wrapper counts its kernel launches in a plain integer
 attribute (``gram.launches``, ``kmv_dense.launches``, ...): one per wrapper
-call that runs its kernel. A ``gram`` call is two CUDA grids (the scaling
-prep, then the tiles; three when not square); a
-``kgrad_dense`` call two (the tiles, then the fixed-order sum), a
-``kgrad_sym`` call three (pack, strips, sum); a ``kmv_dense`` call is one
-grid, or two when it splits its sweep (``kmv_dense_plan(...).grids``); a
+call that runs its kernel. A ``gram`` call is two CUDA grids (the pack
+grid, then the tiles; three when not square: ``gram_plan(...).grids``); a
+``kgrad_dense`` or ``kgrad_sym`` call three (pack, strips, sum); a
+``kmv_dense`` call is one grid, or two when it splits its sweep
+(``kmv_dense_plan(...).grids``); a
 ``kmv_sym`` call two or three whatever N (``kmv_sym_plan(...).grids``), and
 ``kmv_sym.grids`` adds up the grids its calls launched as the kernel's entry
 point counts them.
@@ -408,31 +412,116 @@ def gram_plain(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | 
     return k
 
 
-def gram(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None = None,
-         noise: Tensor | float | None = None) -> Tensor:
-    """K(x1, x2) [+ noise I when x2 is None] through kernel B1.
+#: B1: how a staged tile leaves shared memory (csrc/gram.cu's STORE_*):
+#: 4-byte streaming stores (any N2) or 16-byte streaming stores (N2 % 4 == 0)
+GRAM_STORE_SCALAR, GRAM_STORE_VECTOR = 0, 1
+#: B1: floats of one staged output tile, 64 rows of 64 with 4 floats of skew
+#: every 4 rows (csrc/gram.cu's OBUF)
+GRAM_OBUF = TILE * TILE + TILE
+#: B1: the most blocks an SM runs (gram_sym_kernel's launch bounds)
+GRAM_MAX_PER_SM = 3
+SMEM_BYTES = 227 * 1024     # shared memory one block may use on an H100
+SM_SMEM_BYTES = 228 * 1024  # shared memory of one H100 SM, 1 KB of it reserved per block
 
-    x1 (N1, D), x2 (N2, D) -> (N1, N2) float32. Counterpart of the
-    reference's dispatcher ``pallas_gram.gram``."""
-    square = x2 is None
-    if _on_cpu(x1, x2):
-        return gram_plain(kernel, params, x1, x2, noise)
+
+def gram_smem(d: int) -> int:
+    """Shared-memory bytes of a B1 block: a tile and its mirror staged for
+    the stores, and two input stages of both sides' packed points."""
+    return 4 * (2 * GRAM_OBUF + 4 * (d + 1) * TILE)
+
+
+class GramPlan(NamedTuple):
+    """How ``gram`` runs one call (csrc/gram.cu reads the same fields).
+
+    ``nb1``, ``nb2``: 64-point tiles along each side. ``tiles``: the tiles
+    the blocks walk (the upper triangle nb1 (nb1 + 1) / 2 when square, else
+    nb1 x nb2). ``blocks``: persistent blocks; block b takes tiles b,
+    b + blocks, ... ``fields``: floats per packed point (d coordinates and
+    the squared norm). ``pack``: float32 elements of scratch for the packed
+    points. ``smem``: shared-memory bytes of a block (``gram_smem``).
+    ``store``: how the staged tiles leave (GRAM_STORE_*: 16-byte streaming
+    stores when N2 % 4 == 0, else 4-byte ones). ``grids``:
+    CUDA grids per call (the pack grid of each side, then the tiles)."""
+    nb1: int
+    nb2: int
+    tiles: int
+    blocks: int
+    fields: int
+    pack: int
+    smem: int
+    store: int
+    grids: int
+
+
+@functools.cache
+def gram_plan(n1: int, n2: int, d: int, square: bool, sms: int = 132,
+              per_sm: int | None = None) -> GramPlan:
+    """The plan of one ``gram`` call on x1 (n1, d), x2 (n2, d) (``square``:
+    x2 is x1) on a card of ``sms`` SMs: as many blocks as fit an SM at once
+    (shared memory, at most GRAM_MAX_PER_SM; ``per_sm`` overrides), never
+    more than there are tiles."""
+    if square and n1 != n2:
+        raise ValueError(f"a square Gram has n1 == n2, got {n1} and {n2}")
+    smem = gram_smem(d)
+    if smem > SMEM_BYTES:
+        raise ValueError(f"gram: a block stages {d + 1} floats per point (D = {d}) in "
+                         f"{smem} bytes, more than the {SMEM_BYTES} of its shared memory")
+    nb1, nb2 = -(-n1 // TILE), -(-n2 // TILE)
+    tiles = nb1 * (nb1 + 1) // 2 if square else nb1 * nb2
+    store = GRAM_STORE_VECTOR if n2 % 4 == 0 else GRAM_STORE_SCALAR
+    if per_sm is None:
+        per_sm = max(1, min(GRAM_MAX_PER_SM, SM_SMEM_BYTES // (smem + 1024)))
+    pack = (nb1 if square else nb1 + nb2) * (d + 1) * TILE
+    return GramPlan(nb1, nb2, tiles, max(1, min(tiles, per_sm * sms)), d + 1, pack, smem, store,
+                    2 if square else 3)
+
+
+def _gram_cuda(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None,
+               noise: Tensor | float | None, plan: GramPlan | None = None,
+               tiles: bool = False) -> tuple[Callable[[], int], Tensor]:
+    """B1 on CUDA tensors: checks, allocates, and returns (launch, out);
+    ``launch()`` enqueues the call's grids and returns the CUDA error code.
+    ``plan``: another plan than ``gram_plan``'s; ``tiles``: the first design,
+    a block per 64 x 128 tile of the whole output, which
+    examples/torch_gram_timing.py times beside the symmetric one."""
     from gpras_tpu_torch.ops._build import library
 
+    square = x2 is None
     xb = x1 if square else x2
     hyp = _kernel_args(kernel, params, (x1, xb))
     if xb.shape[1] != x1.shape[1]:
         raise ValueError(f"x1 has {x1.shape[1]} dimensions, x2 has {xb.shape[1]}")
     dev = x1.device
     nz, nz_value = _scalar_arg(noise if square else None, dev)
-    out = torch.empty((x1.shape[0], xb.shape[0]), dtype=torch.float32, device=dev)
-    # scratch for the coordinates divided by the lengthscales (the prep grid)
-    scaled = torch.empty(x1.numel() + (0 if square else xb.numel()), dtype=torch.float32,
-                         device=dev)
+    (n1, d), n2 = x1.shape, xb.shape[0]
+    out = torch.empty((n1, n2), dtype=torch.float32, device=dev)
+    if tiles:  # scratch: the coordinates divided by the lengthscales; no plan
+        scratch = torch.empty(n1 * d + (0 if square else n2 * d), dtype=torch.float32,
+                              device=dev)
+        blocks = store = 0
+    else:
+        if plan is None:
+            plan = gram_plan(n1, n2, d, square, _sms(dev))
+        scratch = torch.empty(plan.pack, dtype=torch.float32, device=dev)
+        blocks, store = plan.blocks, plan.store
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = library().gpras_gram(hyp.kid, x1.data_ptr(), xb.data_ptr(), out.data_ptr(),
-                              scaled.data_ptr(), *hyp.args(), _ptr(nz), nz_value, x1.shape[0],
-                              xb.shape[0], x1.shape[1], int(square), stream)
+    args = (hyp.kid, x1.data_ptr(), xb.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            *hyp.args(), _ptr(nz), nz_value, n1, n2, d, int(square), blocks, store, int(tiles),
+            stream)
+    return _launcher(library().gpras_gram, args, (hyp, nz, scratch)), out
+
+
+def gram(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None = None,
+         noise: Tensor | float | None = None) -> Tensor:
+    """K(x1, x2) [+ noise I when x2 is None] through kernel B1, as
+    ``gram_plan`` plans it.
+
+    x1 (N1, D), x2 (N2, D) -> (N1, N2) float32. Counterpart of the
+    reference's dispatcher ``pallas_gram.gram``."""
+    if _on_cpu(x1, x2):
+        return gram_plain(kernel, params, x1, x2, noise)
+    launch, out = _gram_cuda(kernel, params, x1, x2, noise)
+    rc = launch()
     gram.launches += 1
     _check(rc, "gram")
     return out
@@ -477,21 +566,26 @@ def kgrad_plain(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z:
 #: the fewest tiles a segment holds
 KGRAD_DEPTH = 64
 KGRAD_MIN_TILES = 4
-SMEM_BYTES = 227 * 1024  # shared memory one block may use on an H100
+#: B4: blocks per SM, each an even share of the walk's tiles (at N = 3,072
+#: the walk is ~9 tiles an SM: three blocks of three tiles)
+KGRAD_DENSE_PER_SM = 3
 
 
 class KgradPlan(NamedTuple):
-    """How ``kgrad_sym`` runs one call (csrc/kgrad_sym.cu reads the same
-    fields). ``nb`` row strips of 64 points pair up (p with nb - 1 - p) into
-    ``pairs`` sequences of nb + 1 upper-triangle tiles (the middle strip of an
-    odd nb is alone, (nb + 1) / 2 tiles), each cut into ``segs`` segments of
-    ``per`` tiles, one block each. ``dp``: D padded to a multiple of 8
-    (zeros); the sweep repeats per 8 dimensions (``dp // 8`` times).
-    ``fields``: floats per packed point (dp + 2 m + 1). ``stages``: column
-    tiles in flight in a block's shared-memory ring. Scratch: ``pack`` float32
-    elements, ``partial`` float64 elements. ``grids``: CUDA grids per call."""
+    """How ``kgrad_sym`` and ``kgrad_dense`` run one call
+    (csrc/kgrad_strips.cuh reads the same fields). ``nb`` row strips of 64
+    points, walked in pairs (p with nb - 1 - p), nb + 1 upper-triangle tiles
+    a pair (the middle strip of an odd nb is alone, (nb + 1) / 2 tiles).
+    ``groups`` x ``segs`` blocks: B5 cuts each of its
+    ``groups`` = ceil(nb / 2) pairs into ``segs`` segments of ``per`` tiles;
+    B4 (``per`` 0, ``segs`` 1) gives each of its ``groups`` blocks an even
+    share of the walk's tiles. ``dp``: D padded to a multiple of 8 (zeros);
+    the sweep repeats per 8 dimensions (``dp // 8`` times). ``fields``: floats
+    per packed point (dp + 2 m + 1). ``stages``: column tiles in flight in a
+    block's shared-memory ring. Scratch: ``pack`` float32 elements,
+    ``partial`` float64 elements. ``grids``: CUDA grids per call."""
     nb: int
-    pairs: int
+    groups: int
     segs: int
     per: int
     dp: int
@@ -502,13 +596,26 @@ class KgradPlan(NamedTuple):
     grids: int
 
 
+def _kgrad_stages(fields: int, d: int, m: int, name: str) -> int:
+    """Depth of the strips' ring: three stages while four blocks with their
+    row side then fit an SM's shared memory, else as deep as one block's
+    share allows."""
+    tile_bytes = fields * TILE * 4
+    if 4 * 4 * tile_bytes <= SMEM_BYTES:
+        return 3
+    if 3 * tile_bytes <= SMEM_BYTES:
+        return 2
+    if 2 * tile_bytes <= SMEM_BYTES:
+        return 1
+    raise ValueError(f"{name}: {fields} floats per point (D = {d}, m = {m}) do not fit "
+                     "a block's shared memory twice")
+
+
 @functools.cache
 def kgrad_sym_plan(n: int, d: int, m: int, sms: int = 132, per: int | None = None) -> KgradPlan:
     """The plan of one ``kgrad_sym`` call on x (n, d), w and z (n, m) on a
     card of ``sms`` SMs. ``per``: tiles per segment, by default as many as
-    leave KGRAD_DEPTH blocks per SM, at least KGRAD_MIN_TILES. The ring is
-    three stages deep while four blocks with their row side then fit an
-    SM's shared memory, else as deep as one block's share allows."""
+    leave KGRAD_DEPTH blocks per SM, at least KGRAD_MIN_TILES."""
     nb = -(-n // TILE)
     pairs = (nb + 1) // 2
     dp = -(-d // 8) * 8
@@ -517,18 +624,22 @@ def kgrad_sym_plan(n: int, d: int, m: int, sms: int = 132, per: int | None = Non
         per = max(KGRAD_MIN_TILES, -(-(nb + 1) // -(-KGRAD_DEPTH * sms // pairs)))
     segs = -(-(nb + 1) // per)
     per = -(-(nb + 1) // segs)  # as the kernel's entry point derives it
-    tile_bytes = fields * TILE * 4
-    if 4 * 4 * tile_bytes <= SMEM_BYTES:
-        stages = 3
-    elif 3 * tile_bytes <= SMEM_BYTES:
-        stages = 2
-    elif 2 * tile_bytes <= SMEM_BYTES:
-        stages = 1
-    else:
-        raise ValueError(f"kgrad_sym: {fields} floats per point (D = {d}, m = {m}) do not fit "
-                         "a block's shared memory twice")
-    return KgradPlan(nb, pairs, segs, per, dp, fields, stages, nb * fields * TILE,
-                     (1 + dp) * pairs * segs, 3)
+    return KgradPlan(nb, pairs, segs, per, dp, fields, _kgrad_stages(fields, d, m, "kgrad_sym"),
+                     nb * fields * TILE, (1 + dp) * pairs * segs, 3)
+
+
+@functools.cache
+def kgrad_dense_plan(n: int, d: int, m: int, sms: int = 132) -> KgradPlan:
+    """The plan of one ``kgrad_dense`` call on x (n, d), w and z (n, m) on a
+    card of ``sms`` SMs: B5's walk of strip pairs over the upper triangle,
+    shared evenly by KGRAD_DENSE_PER_SM blocks per SM, never more blocks
+    than tiles."""
+    nb = -(-n // TILE)
+    dp = -(-d // 8) * 8
+    fields = dp + 2 * m + 1
+    blocks = max(1, min(nb * (nb + 1) // 2, KGRAD_DENSE_PER_SM * sms))
+    return KgradPlan(nb, blocks, 1, 0, dp, fields, _kgrad_stages(fields, d, m, "kgrad_dense"),
+                     nb * fields * TILE, (1 + dp) * blocks, 3)
 
 
 def _kgrad_cuda(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor,
@@ -538,11 +649,13 @@ def _kgrad_cuda(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w:
     """B4 (``sym`` False) or B5 on CUDA tensors: checks, allocates, and
     returns (launch, out (1 + D,) float32); ``launch()`` enqueues the call's
     grids and returns the CUDA error code. ``plan``: another plan than
-    ``kgrad_sym_plan``'s; ``tiles``: B5's first port, one block per upper
-    tile (csrc/kgrad.cu), which examples/torch_kgrad_timing.py times beside
-    the strips."""
+    ``kgrad_sym_plan``'s or ``kgrad_dense_plan``'s (B5 takes only segmented
+    ones); ``tiles``: the first port, one block per tile (csrc/kgrad.cu),
+    which examples/torch_kgrad_timing.py times beside the strips."""
     from gpras_tpu_torch.ops._build import library
 
+    if sym and plan is not None and not plan.per:
+        raise ValueError("kgrad_sym walks strip pairs in segments only")
     n, m = w.shape
     if alpha.shape != (n,) or z.shape != (n, m) or x.shape[0] != n:
         raise ValueError(f"kgrad takes x (N, D), w and z (N, m), alpha (N,); got "
@@ -558,15 +671,15 @@ def _kgrad_cuda(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w:
     stream = torch.cuda.current_stream(dev).cuda_stream
     head = (hyp.kid, x.data_ptr(), w.data_ptr(), z.data_ptr(), alpha.data_ptr(), *hyp.args(),
             _ptr(gt), g_value, float(inv_m))
-    if sym and not tiles:
+    if not tiles:
         if plan is None:
-            plan = kgrad_sym_plan(n, d, m, _sms(dev))
+            plan = (kgrad_sym_plan if sym else kgrad_dense_plan)(n, d, m, _sms(dev))
         pack = torch.empty(plan.pack, dtype=torch.float32, device=dev)
         partial = torch.empty(plan.partial, dtype=torch.float64, device=dev)
-        return _launcher(library().gpras_kgrad_sym,
-                         (*head, pack.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d,
-                          plan.dp, m, plan.segs, plan.stages, stream),
-                         (hyp, gt, pack, partial)), out
+        tail = (pack.data_ptr(), partial.data_ptr(), out.data_ptr(), n, d, plan.dp, m)
+        args = (*head, *tail, plan.segs if sym else plan.groups, plan.stages, stream)
+        fn = library().gpras_kgrad_sym if sym else library().gpras_kgrad_dense
+        return _launcher(fn, args, (hyp, gt, pack, partial)), out
     nb = -(-n // TILE)
     slots = nb * (nb + 1) // 2 if sym else nb * nb  # kgrad.cu: kgrad_tiles
     partial = torch.empty((d + 1) * slots, dtype=torch.float64, device=dev)
@@ -591,7 +704,8 @@ def _kgrad(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tens
 
 def kgrad_dense(kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor, z: Tensor,
                 alpha: Tensor, g: Tensor | float, inv_m: float) -> dict[str, Tensor]:
-    """The gradient contraction over every tile, through kernel B4.
+    """The gradient contraction over every tile, through kernel B4, as
+    ``kgrad_dense_plan`` plans it.
 
     Returns {"log_variance": (), "log_lengthscales": (D,)}; x (N, D), w and
     z (N, m), alpha (N,), float32. The noise and jitter diagonal term is the

@@ -259,6 +259,70 @@ def test_gram_matches_plain(device, kernel, n1, n2):
         assert torch.equal(got.diagonal(), diag.expand(n1))
 
 
+# B1's symmetric design against the first (a block per 64 x 128 tile of the
+# whole output), bit for bit: square with noise (one tile, ragged tiles,
+# whole tiles, and N % 4 != 0, where rows leave by 4-byte streaming stores
+# instead of 16-byte ones) and cross (N2 % 4 != 0 and == 0)
+@pytest.mark.parametrize("n1, n2", [(1, None), (65, None), (2003, None), (2048, None),
+                                    (2049, None), (2050, None), (2051, None), (1999, 1001),
+                                    (1999, 1024)])
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_gram_equals_the_first_design(device, kernel, n1, n2):
+    params, x1, x2, _ = _inputs(device, n1, n2 or n1, 8, 1, seed=n1 + 3)
+    x2 = None if n2 is None else x2
+    noise = None if n2 else torch.tensor(0.3, device=device)
+    got = fused_gram.gram(kernel, params, x1, x2, noise=noise)
+    launch, first = fused_gram._gram_cuda(kernel, params, x1, x2, noise, tiles=True)
+    assert launch() == 0
+    torch.cuda.synchronize()
+    assert torch.equal(got, first)
+
+
+# one block walking every tile (each output buffer reused many times), and
+# one SM's worth of blocks, give the same bits as the planned grid
+@pytest.mark.parametrize("n", [2048, 2051])
+def test_gram_any_block_count_gives_the_same_bits(device, n):
+    params, x, _, _ = _inputs(device, n, n, 8, 1, seed=n)
+    want = fused_gram.gram("Matern52", params, x, noise=0.1)
+    for sms, per_sm in ((1, 1), (1, 2), (7, 2)):
+        plan = fused_gram.gram_plan(n, n, 8, True, sms, per_sm=per_sm)
+        launch, got = fused_gram._gram_cuda("Matern52", params, x, None, 0.1, plan=plan)
+        assert launch() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), (sms, per_sm)
+
+
+# both ways out of shared memory (16-byte streaming stores when N2 % 4 == 0,
+# else 4-byte ones) write the first design's bits, square and cross, with
+# the planned blocks and with one block an SM (each block reusing its
+# staged tile many times)
+@pytest.mark.parametrize("n1, n2", [(2052, None), (2051, None), (1999, 1024), (1999, 1001)])
+def test_gram_store_paths_give_the_same_bits(device, n1, n2):
+    params, x1, x2, _ = _inputs(device, n1, n2 or n1, 8, 1, seed=n1 + 5)
+    x2 = None if n2 is None else x2
+    launch, want = fused_gram._gram_cuda("Matern32", params, x1, x2, 0.2, tiles=True)
+    assert launch() == 0
+    for per_sm in (None, 1):
+        plan = fused_gram.gram_plan(n1, n2 or n1, 8, n2 is None, per_sm=per_sm)
+        assert plan.store == (fused_gram.GRAM_STORE_VECTOR if (n2 or n1) % 4 == 0
+                              else fused_gram.GRAM_STORE_SCALAR)
+        launch, got = fused_gram._gram_cuda("Matern32", params, x1, x2, 0.2, plan=plan)
+        assert launch() == 0
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+# the mirror tiles carry the same bits as the tiles they mirror
+@pytest.mark.parametrize("n", [130, 2048, 2051])
+@pytest.mark.parametrize("kernel", ["Matern52", "RBF", "Matern12"])
+def test_gram_square_is_symmetric(device, kernel, n):
+    params, x, _, _ = _inputs(device, n, n, 8, 1, seed=2 * n)
+    k = fused_gram.gram(kernel, params, x, noise=0.25)
+    off = k - torch.diag(k.diagonal())
+    assert torch.equal(off, off.T)
+    assert torch.equal(k.diagonal(), (torch.exp(params["log_variance"]) + 0.25).expand(n))
+
+
 def _kgrad_inputs(device, n, d, m, seed):
     params, x, _, _ = _inputs(device, n, n, d, 1, seed=seed)
     g = np.random.default_rng(seed + 1)
@@ -346,6 +410,40 @@ def test_kgrad_sym_segment_lengths_agree(device):
     scale = outs[1].abs().max().item()
     for out in (outs[0], outs[2], first):
         assert (out - outs[1]).abs().max().item() <= 1e-6 * scale
+
+
+# B4: the strips, as planned and with three blocks in all (each share
+# crossing strip pairs), against the plain version in float64 and against
+# the first port (a block per tile), at ragged and whole N up to where
+# ``kgrad`` hands over to B5, with coincident points (every fifth point
+# repeats its neighbour); the planned call gives the same bits run to run
+@pytest.mark.parametrize("n", [1999, 2048, 3001, 3072, 3584])
+@pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
+def test_kgrad_dense_walks_match_plain(device, kernel, n):
+    params, x, w, z, alpha = _kgrad_inputs(device, n, 8, 16, seed=n + 1)
+    x[1::5] = x[0::5][:x[1::5].shape[0]]
+    common = (kernel, params, x, w, z, alpha, 1.7, 1.0 / 16)
+    want = fused_gram.kgrad_plain(kernel, _f64(params), x.double(), w.double(), z.double(),
+                                  alpha.double(), 1.7, 1.0 / 16)
+    want_v = torch.cat([want["log_variance"].reshape(1), want["log_lengthscales"]])
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    outs = []
+    for cards in (sms, 1):
+        launch, out = fused_gram._kgrad_cuda(
+            False, *common, plan=fused_gram.kgrad_dense_plan(n, 8, 16, cards))
+        assert launch() == 0
+        outs.append(out)
+    launch, first = fused_gram._kgrad_cuda(False, *common, tiles=True)
+    assert launch() == 0
+    a = fused_gram.kgrad_dense(*common)
+    b = fused_gram.kgrad_dense(*common)
+    torch.cuda.synchronize()
+    for k in a:
+        assert torch.equal(a[k], b[k])
+    planned = torch.cat([a["log_variance"].reshape(1), a["log_lengthscales"]])
+    for res in (*outs, first, planned):
+        assert torch.isfinite(res).all()
+        assert (res.double() - want_v).abs().max().item() <= TOL * want_v.abs().max().item()
 
 
 def test_kgrad_sym_is_deterministic(device):

@@ -1,8 +1,10 @@
-"""What of B2's and B5's Hopper designs lives in Python, on the CPU.
+"""What of B2's, B4's and B5's Hopper designs lives in Python, on the CPU.
 
 ``fused_gram.kgrad_sym_plan`` cuts B5's upper triangle into the segments
 csrc/kgrad_sym.cu's blocks walk, and sizes the packed operands and the
-partial sums; ``fused_gram.kmv_dense_plan`` picks B2's design and its split.
+partial sums; ``fused_gram.kgrad_dense_plan`` does the same for B4 (the
+same strips, csrc/kgrad_strips.cuh, an even share of the walk per block);
+``fused_gram.kmv_dense_plan`` picks B2's design and its split.
 The tests below walk the plan as the kernel does (the same index formulas, in
 numpy), lay the operands out as its prep grid does and contract them tile by
 tile from that layout, and hold the result against the plain version. The
@@ -26,25 +28,38 @@ from torch_parity import t32, t64
 T = fused_gram.TILE
 
 
-def _walk(plan, p, s):
-    """The (strip, column tile) pairs of block (p, s), in order, as
-    csrc/kgrad_sym.cu's kgrad_sym_kernel derives them."""
-    q = plan.nb - 1 - p
-    len0 = plan.nb - p
-    length = plan.nb + 1 if q > p else len0
-    t0 = min(length, s * plan.per)
-    t1 = min(length, t0 + plan.per)
-    return [(p, p + t) if t < len0 else (q, q + t - len0) for t in range(t0, t1)]
+def _tile_at(plan, t):
+    """Tile t of the walk's sequence, as csrc/kgrad_strips.cuh's tile_at
+    derives it: strip pairs (p, nb - 1 - p), nb + 1 tiles a pair."""
+    nb = plan.nb
+    p, off = divmod(t, nb + 1)
+    if off >= nb - p:
+        return nb - 1 - p, nb - 1 - p + off - (nb - p)
+    return p, p + off
+
+
+def _walk(plan, b, s):
+    """The (strip, column tile) pairs of block (b, s), in order, as
+    kgrad_strips_kernel derives them: segment s of pair b (``per`` > 0),
+    else block b's even share of the whole walk."""
+    nb = plan.nb
+    if plan.per:
+        length = nb + 1 if nb - 1 - b > b else nb - b
+        t0, t1 = (b * (nb + 1) + min(length, k * plan.per) for k in (s, s + 1))
+    else:
+        total = nb * (nb + 1) // 2
+        t0, t1 = total * b // plan.groups, total * (b + 1) // plan.groups
+    return [_tile_at(plan, t) for t in range(t0, t1)]
 
 
 @pytest.mark.parametrize("n", [1, 64, 65, 2003, 3585, 5003, 49_152])
 @pytest.mark.parametrize("per", [None, 1, 7, 10_000])
 def test_kgrad_sym_plan_visits_each_upper_tile_once(n, per):
     plan = fused_gram.kgrad_sym_plan(n, 8, 16, per=per)
-    assert plan.nb == -(-n // T) and plan.pairs == (plan.nb + 1) // 2
+    assert plan.nb == -(-n // T) and plan.groups == (plan.nb + 1) // 2
     assert plan.segs * plan.per >= plan.nb + 1 > (plan.segs - 1) * plan.per
     seen = {}
-    for p in range(plan.pairs):
+    for p in range(plan.groups):
         tiles = [tile for s in range(plan.segs) for tile in _walk(plan, p, s)]
         # balanced: every pair of strips walks nb + 1 tiles, the middle strip
         # of an odd count half of that
@@ -62,7 +77,7 @@ def test_kgrad_sym_plan_scratch_and_shared_memory(n, d, m):
     assert plan.dp % 8 == 0 and d <= plan.dp < d + 8
     assert plan.fields == plan.dp + 2 * m + 1
     assert plan.pack == plan.nb * plan.fields * T          # one packed block per strip
-    assert plan.partial == (1 + plan.dp) * plan.pairs * plan.segs
+    assert plan.partial == (1 + plan.dp) * plan.groups * plan.segs
     assert plan.grids == 3
     # the row side and the ring fit one block's shared memory; the ring is
     # three deep only while four such blocks fit an SM
@@ -81,13 +96,72 @@ def test_kgrad_sym_plan_refuses_what_shared_memory_cannot_hold():
 def test_kgrad_sym_plan_fills_the_card(sms):
     # the training shape: KGRAD_DEPTH blocks per SM, a few percent of tail
     plan = fused_gram.kgrad_sym_plan(49_152, 8, 16, sms=sms)
-    blocks = plan.pairs * plan.segs
+    blocks = plan.groups * plan.segs
     assert fused_gram.KGRAD_DEPTH * sms <= blocks < 1.1 * fused_gram.KGRAD_DEPTH * sms
     # the smallest N that reaches B5: still three blocks per SM, of at least
     # KGRAD_MIN_TILES tiles
     small = fused_gram.kgrad_sym_plan(3585, 8, 16, sms=sms)
     assert small.per == fused_gram.KGRAD_MIN_TILES
-    assert small.pairs * small.segs >= 3 * sms
+    assert small.groups * small.segs >= 3 * sms
+
+
+@pytest.mark.parametrize("sms", [132, 108, 7, 1])
+@pytest.mark.parametrize("n", [1, 64, 2003, 3001, 3072, 3584])
+def test_kgrad_dense_plan_visits_each_tile_once(n, sms):
+    """Each upper tile once (its mirror by the folded cotangent), whatever
+    the number of blocks; every block's share is the same to within one
+    tile, and a share may cross from one strip pair into the next."""
+    plan = fused_gram.kgrad_dense_plan(n, 8, 16, sms)
+    assert plan.nb == -(-n // T)
+    assert (plan.segs, plan.per) == (1, 0)
+    seen, shares = {}, []
+    for b in range(plan.groups):
+        tiles = _walk(plan, b, 0)
+        shares.append(len(tiles))
+        for tile in tiles:
+            seen[tile] = seen.get(tile, 0) + 1
+    want = {(i, j) for i in range(plan.nb) for j in range(i, plan.nb)}
+    assert set(seen) == want and set(seen.values()) == {1}
+    assert min(shares) >= 1 and max(shares) - min(shares) <= 1
+
+
+@pytest.mark.parametrize("sms", [132, 114, 108, 66])
+def test_kgrad_dense_plan_fills_the_card_at_its_path_shape(sms):
+    # N = 3,072 (48 strips): KGRAD_DENSE_PER_SM blocks on every SM, at least two
+    plan = fused_gram.kgrad_dense_plan(3072, 8, 16, sms)
+    assert plan.groups == fused_gram.KGRAD_DENSE_PER_SM * sms >= 2 * sms
+    assert fused_gram.kgrad_dense_plan(64, 8, 16, sms).groups == 1
+
+
+@pytest.mark.parametrize("n, d, m", [(3072, 8, 16), (3584, 8, 16), (3001, 8, 16), (1, 8, 16),
+                                     (64, 8, 16), (2003, 1, 1), (2003, 20, 7), (2003, 9, 16),
+                                     (1999, 33, 3), (300, 128, 16), (300, 8, 128),
+                                     (300, 100, 100), (300, 128, 128), (3584, 64, 64)])
+def test_kgrad_dense_plan_scratch_and_shared_memory(n, d, m):
+    plan = fused_gram.kgrad_dense_plan(n, d, m)
+    assert plan.dp % 8 == 0 and d <= plan.dp < d + 8
+    assert plan.fields == plan.dp + 2 * m + 1
+    assert plan.pack == plan.nb * plan.fields * T
+    assert plan.partial == (1 + plan.dp) * plan.groups
+    assert plan.grids == 3
+    tile_bytes = plan.fields * T * 4
+    assert 1 <= plan.stages <= 3
+    assert (1 + plan.stages) * tile_bytes <= fused_gram.SMEM_BYTES
+    assert (plan.stages == 3) == (16 * tile_bytes <= fused_gram.SMEM_BYTES)
+
+
+def test_kgrad_dense_plan_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match="kgrad_dense.*shared memory"):
+        fused_gram.kgrad_dense_plan(300, 128, 128 + 64)
+
+
+def test_kgrad_sym_takes_segmented_plans_only():
+    x = torch.zeros((10, 2))
+    w = torch.zeros((10, 3))
+    params = {"log_variance": torch.tensor(0.0), "log_lengthscales": torch.zeros(2)}
+    with pytest.raises(ValueError, match="strip pairs in segments"):
+        fused_gram._kgrad_cuda(True, "RBF", params, x, w, w, w[:, 0].contiguous(), 1.0, 1 / 3,
+                               plan=fused_gram.kgrad_dense_plan(10, 2, 3))
 
 
 def _f_fp(kernel, r2):
@@ -145,12 +219,16 @@ def _tile_sums(kernel, plan, rows, cols, mirror, d, m, q0, inv_m):
 
 
 @pytest.mark.parametrize("kernel", K.STATIONARY_KERNELS)
-@pytest.mark.parametrize("n, d, m, per", [(333, 3, 4, None), (200, 11, 2, 2), (129, 8, 1, 1)])
-def test_packed_strips_emulation_matches_plain(kernel, n, d, m, per):
-    """The whole of B5's data flow in numpy, float64: pack, walk every block
-    of the plan, sum each block's tiles, write its partials where the kernel
-    does, add the slots, scale; against ``kgrad_plain``. Coincident points
-    (every tenth point repeats its neighbour) keep the 1e-12 guard in play."""
+@pytest.mark.parametrize("n, d, m, per, walk", [
+    (333, 3, 4, None, "sym"), (200, 11, 2, 2, "sym"), (129, 8, 1, 1, "sym"),
+    (333, 3, 4, 3, "dense"), (200, 11, 2, 3, "dense"), (129, 8, 1, 1, "dense")])
+def test_packed_strips_emulation_matches_plain(kernel, n, d, m, per, walk):
+    """The whole data flow of B5 (``sym``) and of B4 (``dense``) in numpy,
+    float64: pack, walk every block of the plan, sum each block's tiles
+    (folded cotangent on a tile j > i), write its partials where the kernel
+    does, add the slots, scale; against
+    ``kgrad_plain``. Coincident points (every tenth point repeats its
+    neighbour) keep the 1e-12 guard in play."""
     rng = np.random.default_rng(n + d)
     x = rng.normal(size=(n, d))
     x[::10] = x[1::10][:len(x[::10])]
@@ -159,16 +237,20 @@ def test_packed_strips_emulation_matches_plain(kernel, n, d, m, per):
     alpha = rng.normal(size=n)
     params = {"log_variance": np.float64(0.3), "log_lengthscales": np.log(rng.uniform(0.5, 2, d))}
     g, inv_m = 1.7, 1.0 / m
-    plan = fused_gram.kgrad_sym_plan(n, d, m, per=per)
+    if walk == "sym":
+        plan = fused_gram.kgrad_sym_plan(n, d, m, per=per)
+    else:  # here ``per`` is the number of SMs, of three blocks each
+        plan = fused_gram.kgrad_dense_plan(n, d, m, sms=per)
     pack = _pack(plan, x / np.exp(params["log_lengthscales"]), w, z, alpha, d, m)
-    slots = plan.pairs * plan.segs
+    slots = plan.groups * plan.segs
     partial = np.full((1 + plan.dp, slots), np.nan)
     for zc in range(plan.dp // 8):
-        for p in range(plan.pairs):
+        for p in range(plan.groups):
             for s in range(plan.segs):
                 sums = np.zeros(9)
                 for i, j in _walk(plan, p, s):
-                    sums += _tile_sums(kernel, plan, pack[i], pack[j], j > i, d, m, 8 * zc, inv_m)
+                    sums += _tile_sums(kernel, plan, pack[i], pack[j], j > i, d, m, 8 * zc,
+                                       inv_m)
                 slot = p * plan.segs + s
                 if zc == 0:
                     partial[0, slot] = sums[0]
