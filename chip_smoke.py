@@ -3,8 +3,9 @@
 
 Drives the exact-GP serving path and the exact-GP training path once each at
 full width (N = 49,152 training points, D = 8 inputs, Matern52, P = 4 EOF
-modes, 49,152-cell fields) through the entry points a user calls, and checks
-every CUDA kernel on those paths:
+modes, 49,152-cell fields), and the matrix-free CG training path at
+N = 131,072, through the entry points a user calls, and checks every CUDA
+kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
@@ -20,7 +21,10 @@ every CUDA kernel on those paths:
    also against its first design (a block per 64 x 128 tile of the whole
    output), which must give the same bits, and beside the card's store
    ceiling (torch's fill_ of the same 9.66 GB, timed in turns with B1's
-   grids)
+   grids); then the CG training path's shapes, B3 at N = 131,072, R = 17
+   (with the library call at N = 49,152, R = 17) and B5 at N = 131,072,
+   m = 16; and every kernel at D = 300, past the 128 dimensions a kernel
+   stages in shared memory (the kernels' wide path)
 3. serving: write a checkpoint and two EOF preprocessors with the port, load
    them in PosteriorPredictor(device="cuda"), answer two LF-field requests,
    and show through the launch counters that B2 and B3 ran (and how many
@@ -35,6 +39,16 @@ every CUDA kernel on those paths:
    float64 plain contraction with the same probes; a breakdown of one full-N
    step
 7. a 2-step Hutchinson fit at N = 3,072, the path on which B4 runs
+8. CG-engine checks at N = 49,152, mode 0, at the serving hyperparameters:
+   the CG loss's quad part against the float64 Cholesky's, its SLQ
+   log-determinant against the float64 one within 4 standard errors of its
+   16 probe terms, and its gradient against the same estimator with exact
+   float64 solves; each with what it can see (its reach)
+9. the slice at full width: GPRAS(...).fit at N = 131,072 through "auto"
+   (a 2,048-point dense rung, one CG forward per mode to certify, 3 Adam
+   steps per mode on the CG loss: B3 every mbcg iteration, B5 the backward),
+   its launches and peak device memory, and a breakdown of one full-N CG
+   step
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -61,6 +75,10 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 N, D, P = 49_152, 8, 4
+N_CG = 131_072     # the CG training path (exact_engine "auto" above 55,000 points)
+R_CG = 17          # its mbcg right-hand sides: y and 16 probes
+D_WIDE = 300       # past fused_gram.STAGED_DIM: every kernel's wide path
+CG_PEAK_GB = 4.0   # phase 9's device-memory limit: the engine holds O(N (R + rank))
 GRID = (192, 256)  # 49,152 cells
 M = 16             # Hutchinson probes (the reference's default)
 KERNEL_TOL = 1e-4  # |kernel - plain_f64| <= 1e-4 * max|plain_f64| (see phase 2)
@@ -146,23 +164,23 @@ def bound(flops: float, nbytes: float, tc_flops: float = 0.0) -> tuple[float, st
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-# fp32 operations per covariance entry: the D-wide dot or difference sum,
+# fp32 operations per covariance entry: the d-wide dot or difference sum,
 # r2, and the Matern52 tail (sqrt, exp and ~8 multiply-adds)
-def entry_ops() -> int:
-    return 2 * D + 12
+def entry_ops(d: int = D) -> int:
+    return 2 * d + 12
 
 
-def gram_work(n1: int, n2: int) -> tuple[float, float]:
-    return n1 * n2 * entry_ops(), 4.0 * (n1 * n2 + (n1 + n2) * D)
+def gram_work(n1: int, n2: int, d: int = D) -> tuple[float, float]:
+    return n1 * n2 * entry_ops(d), 4.0 * (n1 * n2 + (n1 + n2) * d)
 
 
-def kmv_work(n1: int, n2: int, r: int, sym: bool) -> tuple[float, float, float]:
+def kmv_work(n1: int, n2: int, r: int, sym: bool, d: int = D) -> tuple[float, float, float]:
     """(fp32 operations, bytes, TF32 operations) of (K(x1, x2) [+ noise I]) @ V
     at fp32 accuracy: each distinct covariance entry built once on the CUDA
     cores (half the square when symmetric), the contraction as three TF32
     products (3xTF32) on the tensor cores."""
     tiles = n1 * n2 / 2 if sym else n1 * n2
-    return (tiles * entry_ops(), 4.0 * ((n1 + n2) * D + n2 * r + n1 * r),
+    return (tiles * entry_ops(d), 4.0 * ((n1 + n2) * d + n2 * r + n1 * r),
             3 * 2.0 * n1 * n2 * r)
 
 
@@ -438,6 +456,93 @@ def phase_kernels():
                   grids=(lambda: fused_gram._kgrad_cuda(sym, kernel, params, x, w, z, alpha, 1.3,
                                                         1.0 / m)) if timed else None)
         torch.cuda.empty_cache()
+
+    # The CG training path (phase 9), Matern52: B3 at N = 131,072 with
+    # R = 17 (the target and 16 probes, every mbcg iteration; planned as the
+    # 64-column tensor-core build) and B5 at m = 16 (the backward; the path's
+    # V = P^-1 z is not +-1, so normal draws), each timed with its grids
+    # alone. The library call for B3 at R = 17 runs on a Gram built by B1 at
+    # N = 49,152: a prebuilt fp32 Gram at 131,072 would be 68.7 GB.
+    kernel = "Matern52"
+    noise = torch.tensor(1e-2, device=dev)
+    for n, library in ((N_CG, False), (N, True)):
+        params, x, _, v = inputs(n, n, R_CG)
+        plan = fused_gram.kmv_sym_plan(n, D, R_CG, sms)
+        check("kmv_sym", kernel, f"{n}x{n} R={R_CG}",
+              lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
+              fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
+              lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise),
+              kmv_work(n, n, R_CG, True),
+              library=(lambda: prebuilt_matmul(kernel, params, x, None, noise, v))
+              if library else None,
+              grids=lambda: fused_gram._kmv_sym_cuda(plan, kernel, params, x, v, noise)[:2])
+        torch.cuda.empty_cache()
+    params, x, _, _ = inputs(N_CG, N_CG, 1)
+    w, z = (torch.randn(N_CG, M, generator=gen).to(dev) for _ in range(2))
+    alpha = torch.randn(N_CG, generator=gen).to(dev)
+    check("kgrad_sym", kernel, f"N={N_CG} m={M}",
+          lambda: fused_gram.kgrad_sym(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+          fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(), z.double(),
+                                 alpha.double(), 1.3, 1.0 / M),
+          lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+          kgrad_work(N_CG, D, M),
+          grids=lambda: fused_gram._kgrad_cuda(True, kernel, params, x, w, z, alpha, 1.3,
+                                               1.0 / M))
+    del params, x, w, z, alpha
+    torch.cuda.empty_cache()
+
+    # Every kernel at D = 300 (the wide path: 128 coordinates a point staged,
+    # B2's tiled build 128 at a time; its rows design is not planned past 128):
+    # B1 a small square, B2 a serving bucket against 8,192 points, B3 through
+    # both builds, B4 and B5 at N = 4,096. Lengthscales ~sqrt(D) keep the
+    # covariances far from 0 and 1.
+    def wide(n1, n2, r):
+        params = {"log_variance": torch.tensor(0.0, device=dev),
+                  "log_lengthscales": torch.log(math.sqrt(D_WIDE) * torch.linspace(
+                      0.8, 1.2, D_WIDE, device=dev))}
+        x1, x2, v = (torch.randn(a, b, generator=gen).to(dev)
+                     for a, b in ((n1, D_WIDE), (n2, D_WIDE), (n2, r)))
+        return params, x1, x2, v
+
+    tag = f" D={D_WIDE}"
+    params, x, _, _ = wide(2003, 2003, 1)
+    check("gram", kernel, "2003x2003 +noise" + tag,
+          lambda: fused_gram.gram(kernel, params, x, noise=noise),
+          lambda got: gram_error(kernel, f64(params), x.double(), None, 1e-2, got),
+          lambda: fused_gram.gram_plain(kernel, params, x, noise=noise),
+          gram_work(2003, 2003, D_WIDE),
+          grids=lambda: fused_gram._gram_cuda(kernel, params, x, None, noise))
+    params, x1, x2, v = wide(256, 8192, 1)
+    check("kmv_dense", kernel, "256x8192 R=1" + tag,
+          lambda: fused_gram.kmv_dense(kernel, params, x1, v, x2=x2),
+          fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(), x2=x2.double()),
+          lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2),
+          kmv_work(256, 8192, 1, False, D_WIDE),
+          library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v),
+          grids=lambda: fused_gram._kmv_dense_cuda(kernel, params, x1, v, x2, None))
+    for r in (1, 64):
+        params, x, _, v = wide(8192, 8192, r)
+        plan = fused_gram.kmv_sym_plan(8192, D_WIDE, r, sms)
+        check("kmv_sym", kernel, f"8192x8192 R={r}" + tag,
+              lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
+              fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
+              lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise),
+              kmv_work(8192, 8192, r, True, D_WIDE),
+              library=lambda: prebuilt_matmul(kernel, params, x, None, noise, v),
+              grids=lambda: fused_gram._kmv_sym_cuda(plan, kernel, params, x, v, noise)[:2])
+    params, x, _, _ = wide(4096, 4096, 1)
+    w, z = (torch.randn(4096, M, generator=gen).to(dev) for _ in range(2))
+    alpha = torch.randn(4096, generator=gen).to(dev)
+    for sym, fn in ((False, fused_gram.kgrad_dense), (True, fused_gram.kgrad_sym)):
+        check(fn.__name__, kernel, f"N=4096 m={M}" + tag,
+              lambda: fn(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+              fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(), z.double(),
+                                     alpha.double(), 1.3, 1.0 / M),
+              lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+              kgrad_work(4096, D_WIDE, M),
+              grids=lambda: fused_gram._kgrad_cuda(sym, kernel, params, x, w, z, alpha, 1.3,
+                                                   1.0 / M))
+    torch.cuda.empty_cache()
     return report, fp32_bounds
 
 
@@ -457,9 +562,9 @@ def synthetic_fields(rng, n_events: int):
     return lf, hf, elev
 
 
-def training_set():
+def training_set(n: int = N):
     """bench._make_data_hard's recipe (seed 7) for mode 0, plus three seeded
-    smooth responses of the same three active inputs.
+    smooth responses of the same three active inputs, at n points.
 
     The per-mode Matern52 hyperparameters that serving uses are fixed:
     lengthscales 3-6 on the active inputs, 10 on the nuisance ones,
@@ -471,14 +576,14 @@ def training_set():
     port (PERF.md; examples/torch_cg_convergence.py), and the dense check
     below could not tell a fault of the port from that."""
     rng = np.random.default_rng(7)
-    x = rng.normal(size=(N, D)).astype(np.float32)
+    x = rng.normal(size=(n, D)).astype(np.float32)
     ys = [np.sin(x[:, 0]) + 0.5 * np.sin(2.0 * x[:, 1]) + 0.4 * np.sin(4.0 * x[:, 2])
-          + 0.1 * rng.normal(size=N)]
+          + 0.1 * rng.normal(size=n)]
     ls = [[3.5, 3.0, 3.0] + [10.0] * (D - 3)]
     for p in range(1, P):
         g = np.random.default_rng(100 + p)
         w = g.normal(size=3)
-        ys.append(np.sin(x[:, :3] @ w) + 0.1 * g.normal(size=N))
+        ys.append(np.sin(x[:, :3] @ w) + 0.1 * g.normal(size=n))
         ls.append([float(np.clip(3.0 / abs(wd), 3.0, 6.0)) for wd in w] + [10.0] * (D - 3))
     params = {"log_variance": np.zeros(P, np.float32),
               "log_lengthscales": np.log(np.asarray(ls, np.float32)),
@@ -607,11 +712,15 @@ def read_counters() -> dict[str, int]:
     return {name: fn.launches for name, fn in counters().items()}
 
 
-def phase_training(x, y):
-    """GPRAS.fit at full width: the warm-start rung (2,048 points, dense
-    engine), one certifying full-N forward per mode, then Adam steps on the
-    full-N Hutchinson loss. Host-clock times of each full-N loss evaluation
-    come from a wrapper around the model's loss (synchronised before each)."""
+def phase_training(x, y, tag="training", need=("gram", "kgrad_sym"), forbid=(),
+                   peak_limit_gb=None):
+    """GPRAS.fit at full width through "auto": the warm-start rung (2,048
+    points, dense engine), one certifying full-N forward per mode, then Adam
+    steps on the full-N loss of the engine N selects. Host-clock times of
+    each full-N loss evaluation come from a wrapper around the model's loss
+    (synchronised before each). Fails on a non-finite loss or parameter, when
+    a kernel of ``need`` never launched or one of ``forbid`` did, and when
+    the peak device memory exceeds ``peak_limit_gb``."""
     import torch
 
     from gpras_tpu_torch import GPRAS
@@ -629,6 +738,7 @@ def phase_training(x, y):
 
     model._loss_fn = timed_loss
     zero_counters()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model.fit(x, y, optimization_method="adam", learning_rate=0.02, max_iter=3,
@@ -640,9 +750,10 @@ def phase_training(x, y):
     del model._loss_fn
     ends = [c[2] for c in calls[1:]] + [t0 + fit_s]
     info = model.warm_start_info
-    log(f"[training] fit of {P} modes at N={N} in {fit_s:.3f} s (warm rung 2,048 points, "
-        f"max_iter 3, lr 0.02); peak device memory {peak_gb:.2f} GB; "
-        f"launches {launches}")
+    log(f"[{tag}] fit of {P} modes at N={x.shape[0]} (engine {model._engine()}) in "
+        f"{fit_s:.3f} s (warm rung 2,048 points, max_iter 3, lr 0.02); peak device memory "
+        f"{peak_gb:.3f} GB; launches {launches}; modes that fell back to the standard init "
+        f"{info['fell_back_modes']}")
     per_mode = []
     for i in range(P):
         iters = int(model.fit_info["iterations"][i])
@@ -653,7 +764,7 @@ def phase_training(x, y):
                          "fell_back": i in info["fell_back_modes"], "losses": losses,
                          "final_loss": float(model.fit_info["loss"][i]), "rejected": rejected,
                          "step_s": steps})
-        log(f"[training] mode {i}: warm start cap {info['ratio_caps'][i]}, cert loss "
+        log(f"[{tag}] mode {i}: warm start cap {info['ratio_caps'][i]}, cert loss "
             f"{info['cert_losses'][i]:.6f}{' (fell back)' if per_mode[-1]['fell_back'] else ''}; "
             f"losses {[f'{v:.6f}' for v in losses]}; final {per_mode[-1]['final_loss']:.6f}; "
             f"rejected {rejected}; s per full-N step {[f'{t:.3f}' for t in steps]}")
@@ -661,8 +772,11 @@ def phase_training(x, y):
             raise AssertionError(f"mode {i}: non-finite losses or missing steps")
     if not all(bool(torch.isfinite(v).all()) for v in model.params.values()):
         raise AssertionError("non-finite fitted parameters")
-    if launches["gram"] == 0 or launches["kgrad_sym"] == 0:
-        raise AssertionError(f"a kernel of the training path never launched: {launches}")
+    if any(launches[k] == 0 for k in need) or any(launches[k] for k in forbid):
+        raise AssertionError(f"{tag}: a kernel of the path never launched ({need}) or one "
+                             f"off it did ({forbid}): {launches}")
+    if peak_limit_gb is not None and peak_gb > peak_limit_gb:
+        raise AssertionError(f"{tag}: peak device memory {peak_gb:.3f} GB > {peak_limit_gb} GB")
     start = next(c[3] for c in calls if c[0] == 0 and c[1])  # mode 0's certified start
     return model, launches, {"fit_s": fit_s, "peak_gb": peak_gb, "modes": per_mode}, start
 
@@ -801,6 +915,183 @@ def phase_b4_path(x, y):
     return launches
 
 
+def phase_cg_checks():
+    """Mode 0 of training_set at N = 49,152, at its serving hyperparameters
+    (where the reference's PCG converges, and a dense float64 factor fits in
+    19.3 GB), through the CG engine's forward and backward as GPRAS trains
+    with them (rank-64 preconditioner, 16 probes, 32 iterations):
+    (a) the quad part against 1/2 y^T K^-1 y from the float64 Cholesky;
+    (b) the SLQ log-determinant (logdet P + the mean of 16 probe terms)
+        against the float64 one, within 4 standard errors of those terms;
+    (c) the gradient against the same estimator with exact solves:
+        kgrad_plain in float64 with W = K^-1 z from the float64 factor, the
+        path's V = P^-1 z, alpha from the factor, plus the diagonal term.
+    32 iterations do not converge here (the 64 of serving do): the limits of
+    (a) and (c) add what the truncated solves account for, each derived
+    from the solves' own residuals as printed."""
+    import torch
+
+    from gpras_tpu_torch.fit.optimizers import value_and_grad
+    from gpras_tpu_torch.gp import exact_cg
+    from gpras_tpu_torch.gp.priors import log_prior
+    from gpras_tpu_torch.ops import kernels as K
+    from gpras_tpu_torch.ops import linalg
+
+    x_np, y_np, params_np = training_set(N)
+    x = torch.as_tensor(x_np, device=DEVICE)
+    y = torch.as_tensor(y_np[:, 0], device=DEVICE).contiguous()
+    p = {k: torch.as_tensor(v[0], device=DEVICE) for k, v in params_np.items()}
+    draws = exact_cg.precond_probes(N, 64, M, device=DEVICE)
+    t0 = time.perf_counter()
+    value, alpha, w, v, terms, logdet_p, rel = exact_cg._cg_solves(
+        "Matern52", p, x, y, draws, 32, 64, None, 4096)
+    noise = exact_cg._noise(p, torch.float32)
+    z, _, _ = exact_cg._probe_matrix("Matern52", p, x, draws, noise, 64)
+    nlml = exact_cg.make_cg_nlml("Matern52", probes=M, max_iters=32, precond_rank=64)
+    _, grads = value_and_grad(lambda q: nlml(q, x, y, draws), p)
+    torch.cuda.synchronize()
+    cg_s = time.perf_counter() - t0
+    quad = 0.5 * float(torch.dot(y, alpha))
+    logdet = float(logdet_p) + float(terms.mean())
+    se = float(terms.double().std()) / math.sqrt(M)
+
+    p64 = {k: val.double() for k, val in p.items()}
+    x64, y64 = x.double(), y.double()
+    t0 = time.perf_counter()
+    kmat = torch.empty((N, N), dtype=torch.float64, device=x.device)
+    for r0 in range(0, N, 4096):
+        kmat[r0:r0 + 4096] = K.gram("Matern52", p64, x64[r0:r0 + 4096], x64)
+    sigma2 = float(torch.exp(p64["log_noise_variance"])
+                   + linalg.default_jitter(torch.float32) * torch.exp(p64["log_variance"]))
+    kmat.diagonal().add_(sigma2)
+    resid = float(torch.linalg.vector_norm(y64 - kmat @ alpha.double()))  # the true residual
+    chol, info = torch.linalg.cholesky_ex(kmat)
+    del kmat
+    if int(info) != 0:
+        raise AssertionError(f"dense float64 Cholesky failed (info {int(info)})")
+    alpha64 = torch.cholesky_solve(y64[:, None], chol)[:, 0]
+    quad64 = 0.5 * float(torch.dot(y64, alpha64))
+    logdet64 = float(linalg.logdet_from_chol(chol))
+    w64 = torch.cholesky_solve(z.double(), chol)
+    del chol
+    torch.cuda.empty_cache()
+    w_resid = torch.linalg.vector_norm(w.double() - w64, dim=0) / \
+        torch.linalg.vector_norm(w64, dim=0)
+    one = torch.tensor(1.0, dtype=torch.float64, device=x.device)
+    want, with_z, at_path = (
+        exact_cg._cotangent_grads("Matern52", p64, x64, a, ww, vv, one, 1.0 / M)
+        for a, ww, vv in ((alpha64, w64, v.double()), (alpha64, w64, z.double()),
+                          (alpha.double(), w.double(), v.double())))
+    dense_s = time.perf_counter() - t0
+    got_v, want_v, z_v, path_v = (torch.cat([g[k].double().reshape(-1) for k in sorted(p)])
+                                  for g in (grads, want, with_z, at_path))
+    grad_err = float((got_v - want_v).abs().max())
+    grad_scale = float(want_v.abs().max())
+    vz_shift = float((z_v - want_v).abs().max())
+    # what the truncated solves move the float64 estimator by: evaluated at
+    # the path's own alpha and W against at the exact ones
+    solve_shift = float((path_v - want_v).abs().max())
+    kernel_err = float((got_v - path_v).abs().max())
+    grad_limit = 1e-3 * grad_scale + solve_shift
+    prior = float(log_prior(p64))
+
+    # (a) CG's iterate is the Galerkin solution on its Krylov space, so its
+    # quad falls short of the exact one by 1/2 e^T K e = 1/2 r^T K^-1 r (e the
+    # error, r the true residual), at most 1/2 ||r||^2 / sigma2 since
+    # lambda_min(K) >= sigma2 (noise + jitter): the limit is 1e-4 relative
+    # (rounding) plus that, the latter only when the y column's relative
+    # residual exceeds 1e-4
+    ynorm = float(torch.linalg.vector_norm(y64))
+    rho = resid / ynorm
+    quad_limit = 1e-4 * abs(quad64) + (0.0 if rho <= 1e-4 else 0.5 * resid ** 2 / sigma2)
+    quad_err = abs(quad - quad64)
+    logdet_err = abs(logdet - logdet64)
+    log(f"[cg-check] N={N} mode 0 at the serving hyperparameters, CG forward + backward "
+        f"{cg_s:.2f} s, dense float64 references {dense_s:.1f} s")
+    log(f"[cg-check] (a) quad {quad:.6f} vs float64 {quad64:.6f}: error {quad_err:.3e} (limit "
+        f"{quad_limit:.3e}); the y column's relative residual after 32 iterations: solver "
+        f"{float(rel[0]):.3e}, true (float64) {rho:.3e}"
+        + ("" if rho <= 1e-4 else " > 1e-4, so the limit adds 1/2 ||r||^2 / sigma2, the most "
+           "a Galerkin iterate's quad can fall short by"))
+    log(f"[cg-check] (b) logdet {logdet:.4f} (logdet P {float(logdet_p):.4f} + SLQ "
+        f"{float(terms.mean()):.4f}) vs float64 {logdet64:.4f}: error {logdet_err:.4f}, "
+        f"4 SE = {4 * se:.4f} (SE {se:.4f} of the {M} probe terms); reach: a dropped logdet P "
+        f"moves it by {abs(float(logdet_p)):.1f} nats ({abs(float(logdet_p)) / (4 * se):.0f} x "
+        "the limit, caught)")
+    log(f"[cg-check] (c) gradient vs the exact-solve estimator: max_abs_err {grad_err:.3e} "
+        f"(scale {grad_scale:.3e}, limit 1e-3 * scale + {solve_shift:.3e} = {grad_limit:.3e}: "
+        f"the float64 estimator at the path's own 32-iteration alpha and W moves by "
+        f"{solve_shift:.3e} from the exact-solve one, the probe columns' relative solution "
+        f"errors up to {float(w_resid.max()):.3e}; against that estimator the CG gradient is "
+        f"off by {kernel_err:.3e}); reach: V = z in place of P^-1 z moves "
+        f"it by {vz_shift / grad_scale:.3e} of the scale ("
+        f"{'caught' if vz_shift > grad_limit else 'NOT caught'}); a dropped log prior "
+        f"moves the training loss by {abs(prior):.3e} ({abs(prior) / abs(float(value)):.3e} of "
+        "it): not caught here, where the NLML's parts are held without the prior (the CPU "
+        "tests hold the training loss, prior included, to the reference)")
+    if not (quad_err <= quad_limit and logdet_err <= 4 * se and grad_err <= grad_limit
+            and vz_shift > grad_limit):
+        raise AssertionError("CG engine disagrees with float64, or a check cannot see V = z")
+    return {"quad": quad, "quad64": quad64, "quad_err": quad_err, "quad_limit": quad_limit,
+            "y_rel_residual_solver": float(rel[0]), "y_rel_residual_true": rho,
+            "logdet": logdet, "logdet64": logdet64, "logdet_err": logdet_err, "slq_se": se,
+            "logdet_p": float(logdet_p), "grad_max_abs_err": grad_err, "grad_scale": grad_scale,
+            "grad_limit": grad_limit, "grad_solve_shift": solve_shift,
+            "grad_err_at_path_solves": kernel_err, "w_rel_err_max": float(w_resid.max()),
+            "v_is_z_shift": vz_shift, "log_prior": prior, "cg_s": cg_s}
+
+
+def phase_cg_fit():
+    """The slice at full width: phase 5's fit at N = 131,072, where "auto"
+    takes the CG engine (above 55,000 points): B3 every mbcg iteration, B5
+    the backward, no B1 (the rung's dense engine builds its 2,048^2 Gram with
+    torch ops), peak device memory under CG_PEAK_GB. Then one full-N CG step
+    of mode 0 piece by piece (CUDA events, each alone) and whole (host clock)."""
+    import torch
+
+    from gpras_tpu_torch.fit.optimizers import value_and_grad
+    from gpras_tpu_torch.gp import exact_cg
+    from gpras_tpu_torch.ops import fused_gram
+
+    x, y, _ = training_set(N_CG)
+    model, launches, fit, _ = phase_training(x, y, "cg-fit", need=("kmv_sym", "kgrad_sym"),
+                                             forbid=("gram",), peak_limit_gb=CG_PEAK_GB)
+    p = {k: val[0] for k, val in model.params.items()}
+    y0 = model.y[:, 0]
+    noise = exact_cg._noise(p, torch.float32)
+    l_pc = exact_cg.pivoted_cholesky("Matern52", p, model.x, 64)
+    pinv, _ = exact_cg.make_woodbury_pinv(l_pc, noise)
+    b = torch.randn(N_CG, R_CG, device=model.x.device)
+    gen = torch.Generator().manual_seed(1)
+    coeffs = torch.rand((32, M), generator=gen).to(model.x.device) + 0.1
+    z, _, _ = exact_cg._probe_matrix("Matern52", p, model.x, model._cg_draws, noise, 64)
+    w = torch.randn(N_CG, M, device=model.x.device)
+    parts = {
+        "pivoted Cholesky (rank 64)": cuda_ms(
+            lambda: exact_cg.pivoted_cholesky("Matern52", p, model.x, 64)),
+        "32 x B3 kmv_sym (R = 17)": 32 * cuda_ms(
+            lambda: fused_gram.kmv_sym("Matern52", p, model.x, b, noise=noise)),
+        "33 x Woodbury P^-1": 33 * cuda_ms(lambda: pinv(b)),
+        "SLQ eigh (16 x 32^2)": cuda_ms(lambda: exact_cg._slq_terms(coeffs, coeffs, coeffs[0])),
+        "B5 kgrad_sym (m = 16)": cuda_ms(
+            lambda: fused_gram.kgrad_sym("Matern52", p, model.x, w, z, b[:, 0].contiguous(),
+                                         1.0, 1.0 / M)),
+    }
+    steps = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        value_and_grad(lambda q: model._loss_fn(q, y0), p)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    step_ms = min(steps) * 1e3
+    rest = step_ms - sum(parts.values())
+    log(f"[cg-step] one full-N CG step of mode 0 (value and gradient, host clock): "
+        f"{step_ms:.1f} ms; " + ", ".join(f"{k} {val:.2f} ms" for k, val in parts.items())
+        + f"; the rest (mbcg's vector updates, host) {rest:.1f} ms")
+    return launches, {**fit, "step_ms": step_ms, "step_parts_ms": parts, "step_rest_ms": rest}
+
+
 def main() -> int:
     import torch
 
@@ -823,6 +1114,9 @@ def main() -> int:
     del model
     torch.cuda.empty_cache()
     b4_launches = phase_b4_path(x, y)
+    cg_checks = phase_cg_checks()
+    torch.cuda.empty_cache()
+    cg_launches, cg_fit = phase_cg_fit()
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -859,9 +1153,12 @@ def main() -> int:
                         "shape": " ".join(path_shape[name]),
                         "at_checked_shapes": {f"{kernel} {shape}": r for (kernel, shape), r
                                               in report[name].items()}})
+        if name in ("kmv_sym", "kgrad_sym"):  # wrapper calls in phase 9's CG fit
+            kernels[-1]["launches_cg_training"] = cg_launches[name]
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
+    log(json.dumps({"cg_training": {"checks_n49152": cg_checks, "fit_n131072": cg_fit}}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))

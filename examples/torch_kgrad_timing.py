@@ -204,12 +204,14 @@ def main() -> int:
         tile_splits = max(1, min(tiles2, -(-2 * sms // -(-n1 // fused_gram.TILE))))
         builds = {f"planned {planned}": fused_gram._kmv_dense_cuda(*common),
                   "tiled design": fused_gram._kmv_dense_cuda(
-                      *common, plan=fused_gram.KmvPlan(False, tile_splits, tile_splits * n1, 2))}
+                      *common, plan=fused_gram.KmvPlan(False, tile_splits, tile_splits * n1, 2,
+                                                  fused_gram.kmv_dense_smem(False, d, 1)))}
         for depth in args.depth:
             per = -(-tiles2 // -(-depth * sms // -(-n1 // fused_gram.TILE)))
             splits = -(-tiles2 // per)
             builds[f"rows depth={depth} splits={splits}"] = fused_gram._kmv_dense_cuda(
-                *common, plan=fused_gram.KmvPlan(True, splits, splits * n1, 2))
+                *common, plan=fused_gram.KmvPlan(True, splits, splits * n1, 2,
+                                        fused_gram.kmv_dense_smem(True, d, 1)))
         errs, times = {}, {tag: [] for tag in builds}
         for tag, (launch, out) in builds.items():
             assert launch() == 0

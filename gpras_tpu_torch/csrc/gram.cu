@@ -39,6 +39,12 @@
 // (tensor stores of 64 x 32 boxes 3.78 ms, 1-D bulk copies of 256-byte rows
 // 6.93 ms, streaming stores 3.29 ms; PERF.md), so neither is kept.
 //
+// Inputs wider than STAGED_DIM = 128 dimensions (hyper.cuh; the TPU body
+// takes the whole feature axis, blocks of (tile, D)): a stage holds the first
+// 128 coordinate fields and the norm, and the dot product goes on over the
+// packed tiles' remaining fields in device memory (through the L1 cache), in
+// the same order, before the covariance.
+//
 // Numerics follow _tile_value: r2 = max(a2 + b2 - 2 ab, 0) with the dot and
 // the norms accumulated by the same fp32 FMA chain as kmv.cu's build_tile,
 // so a point against itself gives r2 == 0 exactly; the five tails come from
@@ -68,6 +74,7 @@ constexpr int TN = 128;       // tile columns
 constexpr int THREADS = 256;  // 8 warps; warp w owns rows w + 8 i, lane l columns l + 32 j
 constexpr int RI = TM / 8;    // rows per thread
 constexpr int CJ = TN / 32;   // columns per thread
+constexpr int FIRST_MAX_D = 128;  // the first design stages every coordinate of its tile
 
 // out[e] = x[e] / lengthscale(column of e), x (n, d) row-major.
 __global__ void gram_scale_kernel(const float* __restrict__ x, float* __restrict__ out,
@@ -231,16 +238,20 @@ __device__ __forceinline__ void upper_tile(long long t, int nb, int& ti, int& tj
 // computes tiles b, b + gridDim.x, ... of the `tiles` in the sequence: the
 // upper triangle when square, else all nb1 x nb2 tiles row by row. The
 // streaming stores have read the staged tile when the block passes the next
-// barrier, so one output stage serves them.
-template <int KERN, int STORE>
+// barrier, so one output stage serves them. WIDE (d > STAGED_DIM): a stage
+// holds the first STAGED_DIM coordinate fields and the norm; the dot product
+// goes on over the remaining fields of the packed tiles in device memory.
+template <int KERN, int STORE, bool WIDE>
 __global__ void __launch_bounds__(SYM_THREADS, 3)
 gram_sym_kernel(const float* __restrict__ pa, const float* __restrict__ pb,
                 float* __restrict__ out, const Hyper hyp, int n1, int n2, int d, int square,
                 long long tiles) {
   extern __shared__ float4 smem4[];
   float* const obuf = reinterpret_cast<float*>(smem4);  // [tile, mirror][OBUF]
-  float* const ibuf = obuf + 2 * OBUF;                  // [2 stages][rows, columns][fs]
-  const int fs = (d + 1) * T;
+  float* const ibuf = obuf + 2 * OBUF;                  // [2 stages][rows, columns][ss]
+  const int fs = (d + 1) * T;                           // floats of a packed tile
+  const int sd = WIDE ? hyper::STAGED_DIM : d;          // coordinate fields staged
+  const int ss = (sd + 1) * T;                          // floats of a staged tile
   const int nb1 = (n1 + T - 1) / T, nb2 = (n2 + T - 1) / T;
   const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
   const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15, warp = tid >> 5, lane = tid & 31;
@@ -258,10 +269,18 @@ gram_sym_kernel(const float* __restrict__ pa, const float* __restrict__ pb,
     coords(t, ti, tj);
     const float* const rows = pa + (size_t)ti * fs;
     const float* const cols = pb + (size_t)tj * fs;
-    float* const dst = ibuf + (size_t)2 * s * fs;
-    for (int e = 4 * tid; e < fs; e += 4 * SYM_THREADS) {
-      cp16(dst + e, rows + e);
-      cp16(dst + fs + e, cols + e);
+    float* const dst = ibuf + (size_t)2 * s * ss;
+    if constexpr (WIDE) {  // fields 0 .. sd - 1, then the norm (field d)
+      for (int e = 4 * tid; e < ss; e += 4 * SYM_THREADS) {
+        const int src = e < sd * T ? e : d * T + (e - sd * T);
+        cp16(dst + e, rows + src);
+        cp16(dst + ss + e, cols + src);
+      }
+    } else {
+      for (int e = 4 * tid; e < fs; e += 4 * SYM_THREADS) {
+        cp16(dst + e, rows + e);
+        cp16(dst + fs + e, cols + e);
+      }
     }
   };
 
@@ -279,14 +298,14 @@ gram_sym_kernel(const float* __restrict__ pa, const float* __restrict__ pb,
     if (t + gridDim.x < tiles) stage(s ^ 1, t + gridDim.x);
     cp_commit();
 
-    const float* const R = ibuf + (size_t)2 * s * fs;
-    const float* const C = R + fs;
+    const float* const R = ibuf + (size_t)2 * s * ss;
+    const float* const C = R + ss;
     float dot[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
 #pragma unroll
       for (int j = 0; j < 4; ++j) dot[i][j] = 0.0f;
-    for (int c = 0; c < d; ++c) {
+    for (int c = 0; c < sd; ++c) {
       float av[4], bv[4];
       ld4(av, R + c * T + 4 * ty);
       ld4(bv, C + c * T + 4 * tx);
@@ -295,9 +314,22 @@ gram_sym_kernel(const float* __restrict__ pa, const float* __restrict__ pb,
 #pragma unroll
         for (int j = 0; j < 4; ++j) dot[i][j] = fmaf(av[i], bv[j], dot[i][j]);
     }
+    if constexpr (WIDE) {  // the same chain over the fields left in device memory
+      const float* const gr = pa + (size_t)ti * fs + 4 * ty;
+      const float* const gc = pb + (size_t)tj * fs + 4 * tx;
+      for (int c = sd; c < d; ++c) {
+        float av[4], bv[4];
+        ld4(av, gr + c * T);
+        ld4(bv, gc + c * T);
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) dot[i][j] = fmaf(av[i], bv[j], dot[i][j]);
+      }
+    }
     float an[4], bn[4];
-    ld4(an, R + d * T + 4 * ty);
-    ld4(bn, C + d * T + 4 * tx);
+    ld4(an, R + sd * T + 4 * ty);
+    ld4(bn, C + sd * T + 4 * tx);
     float kv[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -370,13 +402,14 @@ cudaError_t launch_tiles(const float* a, const float* b, float* out, float* scal
 }
 
 // the symmetric design: the pack grid(s), then `blocks` persistent blocks
-template <int KERN, int STORE>
+template <int KERN, int STORE, bool WIDE>
 cudaError_t launch_sym(const float* a, const float* b, float* out, float* pack, const Hyper& hyp,
                        int n1, int n2, int d, int square, int blocks, cudaStream_t st) {
   static size_t granted[hyper::MAX_DEVICES] = {};
   const size_t fs = (size_t)(d + 1) * T;
-  const size_t bytes = (2 * (size_t)OBUF + 4 * fs) * sizeof(float);  // fused_gram.gram_smem
-  cudaError_t err = hyper::ensure_smem(gram_sym_kernel<KERN, STORE>, bytes, granted);
+  const size_t ss = (size_t)((WIDE ? hyper::STAGED_DIM : d) + 1) * T;
+  const size_t bytes = (2 * (size_t)OBUF + 4 * ss) * sizeof(float);  // fused_gram.gram_smem
+  cudaError_t err = hyper::ensure_smem(gram_sym_kernel<KERN, STORE, WIDE>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int nb1 = (n1 + T - 1) / T, nb2 = (n2 + T - 1) / T;
   float* const pa = pack;
@@ -387,8 +420,8 @@ cudaError_t launch_sym(const float* a, const float* b, float* out, float* pack, 
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const long long tiles = square ? (long long)nb1 * (nb1 + 1) / 2 : (long long)nb1 * nb2;
-  gram_sym_kernel<KERN, STORE><<<blocks, SYM_THREADS, bytes, st>>>(pa, pb, out, hyp, n1, n2, d,
-                                                                   square, tiles);
+  gram_sym_kernel<KERN, STORE, WIDE><<<blocks, SYM_THREADS, bytes, st>>>(pa, pb, out, hyp, n1,
+                                                                         n2, d, square, tiles);
   return cudaGetLastError();
 }
 
@@ -397,9 +430,13 @@ cudaError_t launch(const float* a, const float* b, float* out, float* scratch, c
                    int n1, int n2, int d, int square, int blocks, int store, int tiles,
                    cudaStream_t st) {
   if (tiles) return launch_tiles<KERN>(a, b, out, scratch, hyp, n1, n2, d, square, st);
+#define GPRAS_GRAM_SYM(S, W) \
+  launch_sym<KERN, S, W>(a, b, out, scratch, hyp, n1, n2, d, square, blocks, st)
+  const bool wide = d > hyper::STAGED_DIM;
   if (store == STORE_VECTOR)
-    return launch_sym<KERN, STORE_VECTOR>(a, b, out, scratch, hyp, n1, n2, d, square, blocks, st);
-  return launch_sym<KERN, STORE_SCALAR>(a, b, out, scratch, hyp, n1, n2, d, square, blocks, st);
+    return wide ? GPRAS_GRAM_SYM(STORE_VECTOR, true) : GPRAS_GRAM_SYM(STORE_VECTOR, false);
+  return wide ? GPRAS_GRAM_SYM(STORE_SCALAR, true) : GPRAS_GRAM_SYM(STORE_SCALAR, false);
+#undef GPRAS_GRAM_SYM
 }
 
 }  // namespace
@@ -421,6 +458,7 @@ int gpras_gram(int kern, const void* a, const void* b, void* out, void* scratch,
                float noise_v, int n1, int n2, int d, int square, int blocks, int store, int tiles,
                void* stream) {
   if (n1 < 1 || n2 < 1 || d < 1 || (square && n1 != n2) || (!tiles && blocks < 1) ||
+      (tiles && d > FIRST_MAX_D) ||
       store < STORE_SCALAR || store > STORE_VECTOR ||
       (store == STORE_VECTOR && (n2 % 4 != 0 || reinterpret_cast<uintptr_t>(out) % 16 != 0)))
     return (int)cudaErrorInvalidValue;

@@ -14,6 +14,16 @@
 
 namespace hyper {
 
+// Input dimensions a kernel stages in shared memory for a point. A wider
+// input takes the kernels' wide path (ops/fused_gram.STAGED_DIM): the
+// kernels that keep the scaled coordinates in a packed copy in device memory
+// (B1, B3, B4/B5) stage the first STAGED_DIM of them as before and read the
+// rest from that copy, through the L1 cache, where the sweep reaches them;
+// B2's tiled build stages STAGED_DIM at a time. Either way the squared
+// distance is accumulated across the whole feature axis, in the order of the
+// dimensions, before the covariance is applied.
+constexpr int STAGED_DIM = 128;
+
 struct Hyper {
   const float* log_var;  // one float
   const float* log_ls;   // d floats, ls_stride apart (0: one lengthscale for all)

@@ -11,6 +11,11 @@
 //   is the upper triangle by strip pairs, with the folded cotangent
 //   Kbar_ij + Kbar_ji^T on a tile j > i.
 // - kgrad_common::kgrad_reduce_kernel adds the partials in a fixed order.
+// - Inputs wider than STAGED_DIM = 128 dimensions (hyper.cuh; WIDE): a staged
+//   tile holds the first 128 coordinate fields, then W, Z and alpha; the
+//   squared distance goes on over the packed tiles' remaining coordinates in
+//   device memory (through the L1 cache), and a block's eight lengthscale
+//   dimensions are read from wherever they lie.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -92,16 +97,19 @@ __global__ void kgrad_pack_kernel(const float* __restrict__ x, const float* __re
   }
 }
 
-// One 64 x 64 tile: rows from R, columns from C (packed tiles in shared
-// memory), the thread's 4 x 8 entries; adds the tile's sums to `sum`
-// (float64): sum[0] the variance term, sum[1 + k] the lengthscale term of
-// dimension q0 + k.
-template <int KERN>
-__device__ __forceinline__ void tile_sums(const float* R, const float* C, bool mirror, int d,
-                                          int dp, int m, int q0, float inv_m, int ty, int tx,
+// One 64 x 64 tile: rows from R, columns from C (staged tiles in shared
+// memory: sdp coordinate fields, then W, Z and alpha), the thread's 4 x 8
+// entries; adds the tile's sums to `sum` (float64): sum[0] the variance term,
+// sum[1 + k] the lengthscale term of dimension q0 + k. WIDE (sdp < d): the
+// coordinates sdp .. d - 1 come from GR and GC, the packed tiles in device
+// memory.
+template <int KERN, bool WIDE>
+__device__ __forceinline__ void tile_sums(const float* R, const float* C, const float* GR,
+                                          const float* GC, bool mirror, int d, int sdp, int m,
+                                          int q0, float inv_m, int ty, int tx,
                                           double (&sum)[SUMS]) {
-  const float* const rw = R + (size_t)dp * T + 4 * ty;  // row side: W fields, then Z
-  const float* const cw = C + (size_t)dp * T;           // column side: Z fields first, then W
+  const float* const rw = R + (size_t)sdp * T + 4 * ty;  // row side: W fields, then Z
+  const float* const cw = C + (size_t)sdp * T;           // column side: Z fields first, then W
   float kb[4][8];
 #pragma unroll
   for (int i = 0; i < 4; ++i)
@@ -122,8 +130,8 @@ __device__ __forceinline__ void tile_sums(const float* R, const float* C, bool m
   float r2[4][8];
   {
     float ai[4], aj[8];
-    ld4(ai, R + (size_t)(dp + 2 * m) * T + 4 * ty);
-    ld_cols(aj, C + (size_t)(dp + 2 * m) * T, tx);
+    ld4(ai, R + (size_t)(sdp + 2 * m) * T + 4 * ty);
+    ld_cols(aj, C + (size_t)(sdp + 2 * m) * T, tx);
     const float c = mirror ? 2.0f : 1.0f;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -133,7 +141,7 @@ __device__ __forceinline__ void tile_sums(const float* R, const float* C, bool m
         r2[i][j] = 0.0f;
       }
   }
-  for (int q = 0; q < d; ++q) {
+  for (int q = 0; q < (WIDE ? sdp : d); ++q) {
     float av[4], bv[8];
     ld4(av, R + q * T + 4 * ty);
     ld_cols(bv, C + q * T, tx);
@@ -144,6 +152,20 @@ __device__ __forceinline__ void tile_sums(const float* R, const float* C, bool m
         const float df = av[i] - bv[j];
         r2[i][j] = fmaf(df, df, r2[i][j]);
       }
+  }
+  if constexpr (WIDE) {  // the same chain over the coordinates left in device memory
+    for (int q = sdp; q < d; ++q) {
+      float av[4], bv[8];
+      ld4(av, GR + q * T + 4 * ty);
+      ld_cols(bv, GC + q * T, tx);
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float df = av[i] - bv[j];
+          r2[i][j] = fmaf(df, df, r2[i][j]);
+        }
+    }
   }
   // variance term; then kb becomes kb * f'(u), the lengthscale weight
   float gv = 0.0f;
@@ -160,8 +182,9 @@ __device__ __forceinline__ void tile_sums(const float* R, const float* C, bool m
 #pragma unroll
   for (int k = 0; k < SUMS - 1; ++k) {
     float av[4], bv[8];
-    ld4(av, R + (q0 + k) * T + 4 * ty);
-    ld_cols(bv, C + (q0 + k) * T, tx);
+    const bool staged = !WIDE || q0 + k < sdp;
+    ld4(av, (staged ? R : GR) + (q0 + k) * T + 4 * ty);
+    ld_cols(bv, (staged ? C : GC) + (q0 + k) * T, tx);
     float acc = 0.0f;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -183,14 +206,20 @@ __device__ __forceinline__ void tile_sums(const float* R, const float* C, bool m
 // every block has the same work to within one tile and a pair boundary may
 // fall inside a block. Either way, lengthscale dimensions 8 zc .. 8 zc + 7,
 // and partial is [1 + dp][gridDim.x * gridDim.y]; slot = x * gridDim.y + y.
-template <int KERN>
+// A tile is staged with sdp coordinate fields (all dp of them, or the first
+// STAGED_DIM when WIDE), then W, Z and alpha.
+template <int KERN, bool WIDE>
 __global__ void __launch_bounds__(THREADS, 4)
 kgrad_strips_kernel(const float* __restrict__ pack, const float inv_m, double* __restrict__ partial,
                     int nb, int d, int dp, int m, int per, int nst) {
   extern __shared__ float4 smem4[];
   float* const rowbuf = reinterpret_cast<float*>(smem4);
   const int tsz = (dp + 2 * m + 1) * T;  // floats of a packed tile
-  float* const ring = rowbuf + tsz;
+  const int sdp = WIDE ? hyper::STAGED_DIM : dp;
+  const int ssz = (sdp + 2 * m + 1) * T;  // floats of a staged tile
+  // float offset in a packed tile of staged float e
+  auto packed_at = [&](int e) { return WIDE && e >= sdp * T ? e + (dp - sdp) * T : e; };
+  float* const ring = rowbuf + ssz;
   __shared__ double red[WARPS][SUMS];
 
   const int seq = nb + 1;  // tiles a pair opens in the sequence
@@ -225,8 +254,8 @@ kgrad_strips_kernel(const float* __restrict__ pack, const float inv_m, double* _
   };
   auto issue = [&](int buf, int j) {
     const float* const src = pack + (size_t)j * tsz;
-    float* const dst = ring + (size_t)buf * tsz;
-    for (int e = 4 * tid; e < tsz; e += 4 * THREADS) cp16(dst + e, src + e);
+    float* const dst = ring + (size_t)buf * ssz;
+    for (int e = 4 * tid; e < ssz; e += 4 * THREADS) cp16(dst + e, src + packed_at(e));
   };
 
   double sum[SUMS];
@@ -245,14 +274,16 @@ kgrad_strips_kernel(const float* __restrict__ pack, const float inv_m, double* _
     int i, j;
     tile_at(t, i, j);
     if (i != strip) {  // the row side, once per strip; its last readers passed the barrier below
-      const float4* const src = reinterpret_cast<const float4*>(pack + (size_t)i * tsz);
-      for (int e = tid; e < tsz / 4; e += THREADS) reinterpret_cast<float4*>(rowbuf)[e] = src[e];
+      const float* const src = pack + (size_t)i * tsz;
+      for (int e = tid; e < ssz / 4; e += THREADS)
+        reinterpret_cast<float4*>(rowbuf)[e] =
+            *reinterpret_cast<const float4*>(src + packed_at(4 * e));
       strip = i;
     }
     cp_wait(nst - 1);
     __syncthreads();
-    tile_sums<KERN>(rowbuf, ring + (size_t)(u % nst) * tsz, j > i, d, dp, m, q0, inv_m, ty, tx,
-                    sum);
+    tile_sums<KERN, WIDE>(rowbuf, ring + (size_t)(u % nst) * ssz, pack + (size_t)i * tsz,
+                          pack + (size_t)j * tsz, j > i, d, sdp, m, q0, inv_m, ty, tx, sum);
     __syncthreads();  // this stage and rowbuf are free for the next copies
   }
 
@@ -283,16 +314,17 @@ inline int elementwise_blocks(size_t count) {
 // The pack grid, the strips, the fixed-order sum. blocks > 0 (B4): that many
 // blocks, an even share of the walk each; else (B5) segs segments of each
 // strip pair. nst: ring stages.
-template <int KERN>
+template <int KERN, bool WIDE>
 cudaError_t launch_strips(const float* x, const float* w, const float* z, const float* alpha,
                           const Hyper& hyp, const Cotangent& cot, float* pack, double* partial,
                           float* out, int n, int d, int dp, int m, int segs, int blocks, int nst,
                           cudaStream_t st) {
   static size_t granted[hyper::MAX_DEVICES] = {};
   const int nb = (n + T - 1) / T, fields = dp + 2 * m + 1;
-  const size_t bytes = (size_t)(1 + nst) * fields * T * sizeof(float);
+  const int staged = (WIDE ? hyper::STAGED_DIM : dp) + 2 * m + 1;  // fused_gram's KgradPlan.staged
+  const size_t bytes = (size_t)(1 + nst) * staged * T * sizeof(float);
   if (bytes > MAX_SMEM) return cudaErrorInvalidValue;
-  cudaError_t err = hyper::ensure_smem(kgrad_strips_kernel<KERN>, bytes, granted);
+  cudaError_t err = hyper::ensure_smem(kgrad_strips_kernel<KERN, WIDE>, bytes, granted);
   if (err != cudaSuccess) return err;
   const size_t count = (size_t)nb * fields * T;
   kgrad_pack_kernel<<<elementwise_blocks(count), 256, 0, st>>>(x, w, z, alpha, pack, hyp, n, d,
@@ -302,8 +334,8 @@ cudaError_t launch_strips(const float* x, const float* w, const float* z, const 
   const int pairs = (nb + 1) / 2;
   const int per = blocks > 0 ? 0 : (nb + 1 + segs - 1) / segs;
   const dim3 grid(blocks > 0 ? blocks : pairs, blocks > 0 ? 1 : segs, dp / 8);
-  kgrad_strips_kernel<KERN><<<grid, THREADS, bytes, st>>>(pack, cot.inv_m, partial, nb, d, dp, m,
-                                                          per, nst);
+  kgrad_strips_kernel<KERN, WIDE><<<grid, THREADS, bytes, st>>>(pack, cot.inv_m, partial, nb, d,
+                                                                dp, m, per, nst);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   kgrad_common::kgrad_reduce_kernel<<<d + 1, kgrad_common::REDUCE_THREADS, 0, st>>>(
@@ -331,8 +363,12 @@ int run_strips(int kern, const void* x, const void* w, const void* z, const void
   double* P = static_cast<double*>(partial);
   float* O = static_cast<float*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define GPRAS_KGRAD_STRIPS(K) \
-  launch_strips<K>(X, W, Z, AL, hyp, cot, PK, P, O, n, d, dp, m, segs, blocks, nst, st)
+#define GPRAS_KGRAD_STRIPS(K)                                                                  \
+  (dp > hyper::STAGED_DIM                                                                      \
+       ? launch_strips<K, true>(X, W, Z, AL, hyp, cot, PK, P, O, n, d, dp, m, segs, blocks, nst,  \
+                                st)                                                            \
+       : launch_strips<K, false>(X, W, Z, AL, hyp, cot, PK, P, O, n, d, dp, m, segs, blocks, nst, \
+                                 st))
   switch (kern) {
     case RBF: return GPRAS_KGRAD_STRIPS(RBF);
     case MATERN12: return GPRAS_KGRAD_STRIPS(MATERN12);

@@ -32,6 +32,10 @@
 //   (4 x TR outputs per thread); when the row tiles alone leave SMs idle the
 //   column sweep is split over blocks and kmv_reduce_kernel adds the partial
 //   sums in a fixed order.
+// Inputs wider than STAGED_DIM = 128 dimensions (hyper.cuh): the tiled design
+// stages both tiles' coordinates 128 at a time and carries the dot products
+// and norms across the chunks (build_tile_wide); the rows design, which holds
+// a row's coordinates per thread, is not planned there.
 // Both are deterministic bit for bit (no atomics), and the two-level sums are
 // more exact than one fp32 accumulator over 49,152 terms, which left ~7e-6 of
 // the result's scale against ~1e-6 (PERF.md).
@@ -62,18 +66,23 @@ constexpr int KC = 16;           // rows of V staged in shared memory per step
 constexpr int KPAD = T + 4;      // padded tile row: float4-aligned, fewer bank conflicts
 
 // Shared-memory carve-up. Ks comes first so its float4 reads stay aligned.
+// sd = min(d, STAGED_DIM) coordinates are staged at a time.
 struct Smem {
   float* ks;  // [T][KPAD]  ks[n * KPAD + m] = k(a_m, b_n)
   float* vs;  // [KC][16 * TR] staged rows of V
-  float* as;  // [d][T] row-tile coordinates, transposed
-  float* bs;  // [d][T] column-tile coordinates, transposed
+  float* as;  // [sd][T] row-tile coordinates, transposed
+  float* bs;  // [sd][T] column-tile coordinates, transposed
   float* a2;  // [T] squared norms of the row tile
   float* b2;  // [T] squared norms of the column tile
   float* ls;  // [d] lengthscales
 };
 
+__host__ __device__ inline int staged(int d) {
+  return d < hyper::STAGED_DIM ? d : hyper::STAGED_DIM;
+}
+
 __host__ __device__ inline size_t smem_floats(int d, int tr) {
-  return (size_t)T * KPAD + (size_t)KC * 16 * tr + 2 * (size_t)d * T + 2 * T + d;
+  return (size_t)T * KPAD + (size_t)KC * 16 * tr + 2 * (size_t)staged(d) * T + 2 * T + d;
 }
 
 __device__ inline Smem carve(float* base, int d, int tr) {
@@ -81,8 +90,8 @@ __device__ inline Smem carve(float* base, int d, int tr) {
   s.ks = base;
   s.vs = s.ks + T * KPAD;
   s.as = s.vs + KC * 16 * tr;
-  s.bs = s.as + d * T;
-  s.a2 = s.bs + d * T;
+  s.bs = s.as + staged(d) * T;
+  s.a2 = s.bs + staged(d) * T;
   s.b2 = s.a2 + T;
   s.ls = s.b2 + T;
   return s;
@@ -96,6 +105,17 @@ __device__ inline void load_coords(const float* __restrict__ x, int n, int d,
     const int row = idx / d, col = idx - row * d;
     const int g = row0 + row;
     dst[col * T + row] = g < n ? __fdiv_rn(x[(size_t)g * d + col], ls[col]) : 0.0f;
+  }
+}
+
+// Dimensions [c0, c0 + dc) of rows [row0, row0 + T) of x (n, d), divided by
+// the lengthscales ls, into dst[dc][T]; rows past n are 0.
+__device__ inline void load_chunk(const float* __restrict__ x, int n, int d, int row0, int c0,
+                                  int dc, const float* ls, float* dst) {
+  for (int idx = threadIdx.x; idx < T * dc; idx += THREADS) {
+    const int row = idx / dc, col = idx - row * dc;
+    const int g = row0 + row;
+    dst[col * T + row] = g < n ? __fdiv_rn(x[(size_t)g * d + c0 + col], ls[c0 + col]) : 0.0f;
   }
 }
 
@@ -121,6 +141,52 @@ __device__ inline void build_tile(const Smem& s, int d, int row0, int col0,
 #pragma unroll
     for (int e = 0; e < 16; ++e) dot[e] = fmaf(av, s.bs[c * T + nb + 4 * e], dot[e]);
   }
+  const int gm = row0 + m;
+  const float am = s.a2[m];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) {
+    const int n = nb + 4 * e;
+    const int gn = col0 + n;
+    const float r2 = fmaxf(am + s.b2[n] - 2.0f * dot[e], 0.0f);
+    float kv = covariance<KERN>(r2, var);
+    if (square && gm == gn) kv += noise;
+    if (gm >= n1 || gn >= n2) kv = 0.0f;
+    s.ks[n * KPAD + m] = kv;
+  }
+}
+
+// build_tile for d > STAGED_DIM: both tiles' coordinates are staged
+// STAGED_DIM dimensions at a time, and the dot products and the norms are
+// carried across the chunks by build_tile's FMA chains, in the order of the
+// dimensions, so the entries are those a whole staging would give. Starts
+// with a barrier (the previous tile's readers of ks are done).
+template <int KERN>
+__device__ inline void build_tile_wide(const Smem& s, const float* __restrict__ a,
+                                       const float* __restrict__ b, int d, int row0, int col0,
+                                       int n1, int n2, float var, float noise, bool square) {
+  const int m = threadIdx.x & (T - 1);
+  const int nb = threadIdx.x >> 6;
+  float dot[16];
+#pragma unroll
+  for (int e = 0; e < 16; ++e) dot[e] = 0.0f;
+  float nacc = 0.0f;  // threads 0 .. 63: row m's norm; 64 .. 127: column m's
+  for (int c0 = 0; c0 < d; c0 += hyper::STAGED_DIM) {
+    const int dc = min(hyper::STAGED_DIM, d - c0);
+    __syncthreads();
+    load_chunk(a, n1, d, row0, c0, dc, s.ls, s.as);
+    load_chunk(b, n2, d, col0, c0, dc, s.ls, s.bs);
+    __syncthreads();
+    const float* const own = nb == 0 ? s.as : s.bs;
+    if (nb < 2)
+      for (int c = 0; c < dc; ++c) nacc = fmaf(own[c * T + m], own[c * T + m], nacc);
+    for (int c = 0; c < dc; ++c) {
+      const float av = s.as[c * T + m];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) dot[e] = fmaf(av, s.bs[c * T + nb + 4 * e], dot[e]);
+    }
+  }
+  if (nb < 2) (nb == 0 ? s.a2 : s.b2)[m] = nacc;
+  __syncthreads();
   const int gm = row0 + m;
   const float am = s.a2[m];
 #pragma unroll
@@ -203,8 +269,9 @@ __device__ inline void store(float* __restrict__ out, const float (&acc)[4][TR],
 // B2. Block (x, y, z): row tile x, column chunk y of R, column-tile split z.
 // Each block sweeps its column tiles with the accumulators in registers and
 // writes its partial sum to out + z * n1 * r (z > 0 only when the caller
-// asked for a split, which kmv_reduce then sums in a fixed order).
-template <int KERN, int TR>
+// asked for a split, which kmv_reduce then sums in a fixed order). WIDE
+// (d > STAGED_DIM): each tile is built by build_tile_wide.
+template <int KERN, int TR, bool WIDE>
 __global__ void __launch_bounds__(THREADS)
 kmv_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
                  const float* __restrict__ v, float* __restrict__ out, const Hyper hyp,
@@ -220,13 +287,20 @@ kmv_dense_kernel(const float* __restrict__ a, const float* __restrict__ b,
 
   hyper::stage_lengthscales(hyp, d, s.ls);
   __syncthreads();
-  load_coords(a, n1, d, row0, s.ls, s.as);
-  __syncthreads();
-  if (threadIdx.x < T) norms(s.as, d, s.a2, threadIdx.x);
+  if constexpr (!WIDE) {
+    load_coords(a, n1, d, row0, s.ls, s.as);
+    __syncthreads();
+    if (threadIdx.x < T) norms(s.as, d, s.a2, threadIdx.x);
+  }
 
   float acc[4][TR] = {};
   for (int jt = jt0; jt < jt1; ++jt) {
     const int col0 = jt * T;
+    if constexpr (WIDE) {
+      build_tile_wide<KERN>(s, a, b, d, row0, col0, n1, n2, var, noise, square != 0);
+      contract<TR>(s, v, n2, r, r0, col0, acc);
+      continue;
+    }
     __syncthreads();  // the previous tile's readers are done with bs / ks
     load_coords(b, n2, d, col0, s.ls, s.bs);
     __syncthreads();
@@ -430,18 +504,18 @@ inline int elementwise_blocks(size_t count) {
   return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
-template <int KERN, int TR>
-cudaError_t launch_dense(const float* a, const float* b, const float* v, float* out,
+template <int KERN, int TR, bool WIDE>
+cudaError_t launch_tiles(const float* a, const float* b, const float* v, float* out,
                          float* parts, const Hyper& hyp, int n1, int n2, int d, int r,
                          int square, int splits, cudaStream_t stream) {
   static size_t granted[hyper::MAX_DEVICES] = {};
   const size_t bytes = smem_floats(d, TR) * sizeof(float);
-  cudaError_t err = hyper::ensure_smem(kmv_dense_kernel<KERN, TR>, bytes, granted);
+  cudaError_t err = hyper::ensure_smem(kmv_dense_kernel<KERN, TR, WIDE>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int ntiles = (n2 + T - 1) / T;
   const int per = (ntiles + splits - 1) / splits;
   const dim3 grid((n1 + T - 1) / T, (r + 16 * TR - 1) / (16 * TR), splits);
-  kmv_dense_kernel<KERN, TR><<<grid, THREADS, bytes, stream>>>(
+  kmv_dense_kernel<KERN, TR, WIDE><<<grid, THREADS, bytes, stream>>>(
       a, b, v, splits > 1 ? parts : out, hyp, n1, n2, d, r, square, per);
   err = cudaGetLastError();
   if (err != cudaSuccess || splits == 1) return err;
@@ -451,6 +525,17 @@ cudaError_t launch_dense(const float* a, const float* b, const float* v, float* 
   return cudaGetLastError();
 }
 
+template <int KERN, int TR>
+cudaError_t launch_dense(const float* a, const float* b, const float* v, float* out,
+                         float* parts, const Hyper& hyp, int n1, int n2, int d, int r,
+                         int square, int splits, cudaStream_t stream) {
+  if (d > hyper::STAGED_DIM)
+    return launch_tiles<KERN, TR, true>(a, b, v, out, parts, hyp, n1, n2, d, r, square, splits,
+                                        stream);
+  return launch_tiles<KERN, TR, false>(a, b, v, out, parts, hyp, n1, n2, d, r, square, splits,
+                                       stream);
+}
+
 // ROWS: V columns held per thread, 1, 4, 8 or 16 (R <= 16). TILES: columns
 // per thread, 1 (R <= 16), 4 (R <= 64) or 16 (256 columns a block).
 template <int KERN>
@@ -458,7 +543,8 @@ cudaError_t dispatch(const float* a, const float* b, const float* v, float* out,
                      const Hyper& hyp, int n1, int n2, int d, int r, int square, int rows,
                      int splits, cudaStream_t st) {
 #define GPRAS_KMV_ARGS a, b, v, out, parts, hyp, n1, n2, d, r, square, splits, st
-  if (rows) {
+  if (rows) {  // a thread holds its row's coordinates: up to STAGED_DIM of them
+    if (d > hyper::STAGED_DIM) return cudaErrorInvalidValue;
     if (r == 1) return launch_rows<KERN, 1>(GPRAS_KMV_ARGS);
     if (r <= 4) return launch_rows<KERN, 4>(GPRAS_KMV_ARGS);
     if (r <= 8) return launch_rows<KERN, 8>(GPRAS_KMV_ARGS);

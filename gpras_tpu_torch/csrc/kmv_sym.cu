@@ -56,6 +56,10 @@
 //   (i = 0 .. j, in that order). Coordinates and V are staged by cp.async two
 //   stages deep.
 //
+// Inputs wider than STAGED_DIM = 128 dimensions (hyper.cuh; WIDE): both builds
+// stage the first 128 coordinates of each point and read the rest from xp in
+// device memory (the L1 cache) where the dot product reaches them.
+//
 // Both are deterministic, bit for bit, run to run: every sum has a fixed
 // order, no float atomics, no read-modify-write of device memory.
 //
@@ -209,30 +213,39 @@ struct Tc {
   static constexpr int V_FLOATS = BK / 8 * 4 * TS;
 };
 
-// floats of one stage: V, then the column points' coordinates and norms
-__host__ __device__ inline int tc_stage_floats(int nt, int dp) {
+// coordinates staged per point: all dp of them, or the first STAGED_DIM when
+// wider (WIDE: the rest are read from xp in device memory)
+__host__ __device__ inline int staged_dp(int dp) {
+  return dp < hyper::STAGED_DIM ? dp : hyper::STAGED_DIM;
+}
+
+// floats of one stage: V, then the column points' sdp staged coordinates and norms
+__host__ __device__ inline int tc_stage_floats(int nt, int sdp) {
   const int v_floats = nt == 8 ? Tc<8>::V_FLOATS : Tc<32>::V_FLOATS;
-  return v_floats + BK * dp + BK;
+  return v_floats + BK * sdp + BK;
 }
 
 // One stage's A fragments of one lane (g, t): for each of the BK / 8
 // k-steps, rows gm0 = g and gm0 + 8 against column points t and t + 4 of the
-// stage (coordinates sx, norms sn in shared memory), split into TF32 hi, lo.
-template <int KERN, bool EDGE>
+// stage (sdp coordinates each in sx, norms sn, in shared memory), split into
+// TF32 hi, lo. WIDE: coordinates sdp .. dp - 1 of the column points come from
+// xg, the stage's first point in xp (device memory).
+template <int KERN, bool EDGE, bool WIDE>
 __device__ __forceinline__ void build_stage(uint32_t (&hi)[BK / 8][4], uint32_t (&lo)[BK / 8][4],
                                             const float* sx, const float* sn,
                                             const float (&xa)[8], const float (&xb)[8],
-                                            const float* xr0, const float* xr1, float am0,
-                                            float am1, int gm0, int col0, int t, int dp, int n,
-                                            float var, float noise) {
+                                            const float* xr0, const float* xr1,
+                                            const float* xg, float am0, float am1, int gm0,
+                                            int col0, int t, int dp, int sdp, int n, float var,
+                                            float noise) {
 #pragma unroll
   for (int ks = 0; ks < BK / 8; ++ks) {
     const int c0 = ks * 8 + t, c1 = c0 + 4;  // this lane's two column points
     float dot[4] = {0.0f, 0.0f, 0.0f, 0.0f};  // (gm0, c0) (gm1, c0) (gm0, c1) (gm1, c1)
     {
       float ca[8], cb[8];
-      ld8(ca, sx + c0 * dp);
-      ld8(cb, sx + c1 * dp);
+      ld8(ca, sx + c0 * sdp);
+      ld8(cb, sx + c1 * sdp);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         dot[0] = fmaf(xa[c], ca[c], dot[0]);
@@ -241,18 +254,34 @@ __device__ __forceinline__ void build_stage(uint32_t (&hi)[BK / 8][4], uint32_t 
         dot[3] = fmaf(xb[c], cb[c], dot[3]);
       }
     }
-    for (int c8 = 8; c8 < dp; c8 += 8) {
+    for (int c8 = 8; c8 < sdp; c8 += 8) {
       float ra[8], rb[8], ca[8], cb[8];
       ldg8(ra, xr0 + c8);
       ldg8(rb, xr1 + c8);
-      ld8(ca, sx + c0 * dp + c8);
-      ld8(cb, sx + c1 * dp + c8);
+      ld8(ca, sx + c0 * sdp + c8);
+      ld8(cb, sx + c1 * sdp + c8);
 #pragma unroll
       for (int c = 0; c < 8; ++c) {
         dot[0] = fmaf(ra[c], ca[c], dot[0]);
         dot[1] = fmaf(rb[c], ca[c], dot[1]);
         dot[2] = fmaf(ra[c], cb[c], dot[2]);
         dot[3] = fmaf(rb[c], cb[c], dot[3]);
+      }
+    }
+    if constexpr (WIDE) {
+      for (int c8 = sdp; c8 < dp; c8 += 8) {
+        float ra[8], rb[8], ca[8], cb[8];
+        ldg8(ra, xr0 + c8);
+        ldg8(rb, xr1 + c8);
+        ldg8(ca, xg + (size_t)c0 * dp + c8);
+        ldg8(cb, xg + (size_t)c1 * dp + c8);
+#pragma unroll
+        for (int c = 0; c < 8; ++c) {
+          dot[0] = fmaf(ra[c], ca[c], dot[0]);
+          dot[1] = fmaf(rb[c], ca[c], dot[1]);
+          dot[2] = fmaf(ra[c], cb[c], dot[2]);
+          dot[3] = fmaf(rb[c], cb[c], dot[3]);
+        }
       }
     }
     const int gm1 = gm0 + 8, gn0 = col0 + c0, gn1 = gn0 + 4;
@@ -283,7 +312,7 @@ __device__ __forceinline__ void build_stage(uint32_t (&hi)[BK / 8][4], uint32_t 
 // nearest): the tensor cores' fp32 accumulation truncates, and one
 // accumulator carried through 18,432 MMAs (n = 49,152) drifted by ~3e-4 of
 // the result's scale, against ~1e-6 this way.
-template <int KERN, int NT>
+template <int KERN, int NT, bool WIDE>
 __global__ void __launch_bounds__(THREADS, NT >= 32 ? 1 : 2)
 kmv_tc_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
               const float* __restrict__ vbuf, float* __restrict__ out, const Hyper hyp, int n,
@@ -292,7 +321,8 @@ kmv_tc_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
   constexpr int KS = BK / 8;  // mma k-steps per stage
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  const int stage = tc_stage_floats(NT, dp);
+  const int sdp = WIDE ? hyper::STAGED_DIM : dp;  // coordinates staged per point
+  const int stage = tc_stage_floats(NT, sdp);
   const float var = hyper::variance(hyp), noise = hyper::noise(hyp);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
@@ -308,15 +338,22 @@ kmv_tc_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
   auto issue = [&](int buf, int kt) {
     float* const sv = smem + buf * stage;
     float* const sx = sv + L::V_FLOATS;
-    float* const sn = sx + BK * dp;
+    float* const sn = sx + BK * sdp;
     const int k0 = kt * BK;
     const float* const gv = vchunk + (size_t)k0 * 16 * NT;
     for (int q = threadIdx.x; q < BK * 4 * NT; q += THREADS) {
       const int run = q / NT, w = q - run * NT;  // run = (k-step, t, g); w: its 16-byte chunk
       cp16(sv + (run >> 3) * L::TS + (run & 7) * L::GS + w * 4, gv + (size_t)q * 4);
     }
-    for (int q = threadIdx.x; q < BK * dp / 4; q += THREADS)
-      cp16(sx + q * 4, xp + (size_t)k0 * dp + q * 4);
+    if constexpr (WIDE) {  // each point's first sdp coordinates
+      for (int q = threadIdx.x; q < BK * sdp / 4; q += THREADS) {
+        const int pt = q / (sdp / 4), w = q - pt * (sdp / 4);
+        cp16(sx + pt * sdp + w * 4, xp + (size_t)(k0 + pt) * dp + w * 4);
+      }
+    } else {
+      for (int q = threadIdx.x; q < BK * dp / 4; q += THREADS)
+        cp16(sx + q * 4, xp + (size_t)k0 * dp + q * 4);
+    }
     for (int q = threadIdx.x; q < BK / 4; q += THREADS) cp16(sn + q * 4, nrm + k0 + q * 4);
   };
 
@@ -337,19 +374,20 @@ kmv_tc_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
     __syncthreads();
     const float* const sv = smem + buf * stage;
     const float* const sx = sv + L::V_FLOATS;
-    const float* const sn = sx + BK * dp;
+    const float* const sn = sx + BK * sdp;
 
     // the stage's A fragments first: 4 k-steps x 4 entries, independent.
     // Only a stage that holds a diagonal entry of this warp's rows, or runs
     // past n, pays for those checks.
     uint32_t hi[KS][4], lo[KS][4];
     const int col0 = kt * BK, wrow0 = blockIdx.x * BM + warp * 16;
+    const float* const xg = xp + (size_t)col0 * dp;
     if (col0 + BK > n || (wrow0 < col0 + BK && col0 < wrow0 + 16))
-      build_stage<KERN, true>(hi, lo, sx, sn, xa, xb, xr0, xr1, am0, am1, gm0, col0, t, dp, n,
-                              var, noise);
+      build_stage<KERN, true, WIDE>(hi, lo, sx, sn, xa, xb, xr0, xr1, xg, am0, am1, gm0, col0, t,
+                                    dp, sdp, n, var, noise);
     else
-      build_stage<KERN, false>(hi, lo, sx, sn, xa, xb, xr0, xr1, am0, am1, gm0, col0, t, dp, n,
-                               var, noise);
+      build_stage<KERN, false, WIDE>(hi, lo, sx, sn, xa, xb, xr0, xr1, xg, am0, am1, gm0, col0,
+                                     t, dp, sdp, n, var, noise);
 
     // contract, four n-tiles at a time, each into a fresh partial
 #pragma unroll
@@ -426,15 +464,18 @@ __host__ __device__ inline size_t sym_slot(int i, int j) {
 
 // Block (p, y): row tiles p and nb - 1 - p, V columns [RS y, RS y + RS).
 // Warp w owns rows 8 w .. 8 w + 7 of a tile, lane l columns l and l + 32.
-template <int KERN, int RS>
+// WIDE: sdp = STAGED_DIM coordinates of each point are staged; the dot
+// products go on over coordinates sdp .. dp - 1 read from xp.
+template <int KERN, int RS, bool WIDE>
 __global__ void __launch_bounds__(THREADS, RS == 1 ? 3 : 1)
 kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm,
                      const float* __restrict__ vbuf, float* __restrict__ slots, const Hyper hyp,
                      int n, int npad, int dp, int r) {
   extern __shared__ float4 smem4[];
   float* const smem = reinterpret_cast<float*>(smem4);
-  const int cs = dp + 4;  // padded coordinate row: 16-byte aligned, no bank conflicts
-  const int stage = sym_stage_floats(RS, dp);
+  const int sdp = WIDE ? hyper::STAGED_DIM : dp;  // coordinates staged per point
+  const int cs = sdp + 4;  // padded coordinate row: 16-byte aligned, no bank conflicts
+  const int stage = sym_stage_floats(RS, sdp);
   float* const rows_x = smem + 2 * stage;
   float* const rows_n = rows_x + ST * cs;
   float* const red = rows_n + ST;
@@ -449,7 +490,7 @@ kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm
     float* const sx = smem + buf * stage;
     float* const sn = sx + ST * cs;
     float* const sv = sn + ST;
-    const int k0 = j * ST, cpr = dp / 4;
+    const int k0 = j * ST, cpr = sdp / 4;
     for (int q = threadIdx.x; q < ST * cpr; q += THREADS) {
       const int row = q / cpr, w = q - row * cpr;
       cp16(sx + row * cs + w * 4, xp + (size_t)(k0 + row) * dp + w * 4);
@@ -463,8 +504,8 @@ kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm
     const int i = half == 0 ? (int)blockIdx.x : nb - 1 - (int)blockIdx.x;
     if (half == 1 && i <= (int)blockIdx.x) break;
     __syncthreads();  // the previous row tile's readers of rows_x / rows_n are done
-    for (int q = threadIdx.x; q < ST * dp; q += THREADS) {
-      const int row = q / dp, c = q - row * dp;
+    for (int q = threadIdx.x; q < ST * sdp; q += THREADS) {
+      const int row = q / sdp, c = q - row * sdp;
       rows_x[row * cs + c] = xp[(size_t)(i * ST + row) * dp + c];
     }
     for (int q = threadIdx.x; q < ST; q += THREADS) rows_n[q] = nrm[i * ST + q];
@@ -492,7 +533,7 @@ kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm
       float dot[8][2];
 #pragma unroll
       for (int k = 0; k < 8; ++k) dot[k][0] = dot[k][1] = 0.0f;
-      for (int c8 = 0; c8 < dp; c8 += 8) {
+      for (int c8 = 0; c8 < sdp; c8 += 8) {
         float ca[8], cb[8];
         ld8(ca, sx + lane * cs + c8);
         ld8(cb, sx + (lane + 32) * cs + c8);
@@ -504,6 +545,25 @@ kmv_sym_tiles_kernel(const float* __restrict__ xp, const float* __restrict__ nrm
           for (int c = 0; c < 8; ++c) {
             dot[k][0] = fmaf(ra[c], ca[c], dot[k][0]);
             dot[k][1] = fmaf(ra[c], cb[c], dot[k][1]);
+          }
+        }
+      }
+      if constexpr (WIDE) {
+        const float* const gc = xp + (size_t)(j * ST + lane) * dp;
+        const float* const gr = xp + (size_t)(i * ST + warp * 8) * dp;
+        for (int c8 = sdp; c8 < dp; c8 += 8) {
+          float ca[8], cb[8];
+          ldg8(ca, gc + c8);
+          ldg8(cb, gc + (size_t)32 * dp + c8);
+#pragma unroll
+          for (int k = 0; k < 8; ++k) {
+            float ra[8];
+            ldg8(ra, gr + (size_t)k * dp + c8);
+#pragma unroll
+            for (int c = 0; c < 8; ++c) {
+              dot[k][0] = fmaf(ra[c], ca[c], dot[k][0]);
+              dot[k][1] = fmaf(ra[c], cb[c], dot[k][1]);
+            }
           }
         }
       }
@@ -601,17 +661,17 @@ inline int elementwise_blocks(size_t count) {
   return (int)(blocks < 4096 ? (blocks > 0 ? blocks : 1) : 4096);
 }
 
-template <int KERN, int NT>
+template <int KERN, int NT, bool WIDE>
 cudaError_t launch_tc(const float* xp, const float* nrm, const float* vbuf, float* out,
                       float* parts, const Hyper& hyp, int n, int npad, int dp, int r, int splits,
                       int* grids, cudaStream_t st) {
   static size_t granted[hyper::MAX_DEVICES] = {};
-  const size_t bytes = 2 * (size_t)tc_stage_floats(NT, dp) * sizeof(float);
-  cudaError_t err = hyper::ensure_smem(kmv_tc_kernel<KERN, NT>, bytes, granted);
+  const size_t bytes = 2 * (size_t)tc_stage_floats(NT, staged_dp(dp)) * sizeof(float);
+  cudaError_t err = hyper::ensure_smem(kmv_tc_kernel<KERN, NT, WIDE>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int stages = npad / BK, per = (stages + splits - 1) / splits;
   const dim3 grid(npad / BM, (r + 8 * NT - 1) / (8 * NT), splits);
-  kmv_tc_kernel<KERN, NT><<<grid, THREADS, bytes, st>>>(
+  kmv_tc_kernel<KERN, NT, WIDE><<<grid, THREADS, bytes, st>>>(
       xp, nrm, vbuf, splits > 1 ? parts : out, hyp, n, npad, dp, r, per);
   ++*grids;
   err = cudaGetLastError();
@@ -623,18 +683,18 @@ cudaError_t launch_tc(const float* xp, const float* nrm, const float* vbuf, floa
   return cudaGetLastError();
 }
 
-template <int KERN, int RS>
+template <int KERN, int RS, bool WIDE>
 cudaError_t launch_sym(const float* xp, const float* nrm, const float* vbuf, float* out,
                        float* slots, const Hyper& hyp, int n, int npad, int dp, int r,
                        int* grids, cudaStream_t st) {
   static size_t granted[hyper::MAX_DEVICES] = {};
-  const size_t bytes = (size_t)sym_smem_floats(RS, dp) * sizeof(float);
-  cudaError_t err = hyper::ensure_smem(kmv_sym_tiles_kernel<KERN, RS>, bytes, granted);
+  const size_t bytes = (size_t)sym_smem_floats(RS, staged_dp(dp)) * sizeof(float);
+  cudaError_t err = hyper::ensure_smem(kmv_sym_tiles_kernel<KERN, RS, WIDE>, bytes, granted);
   if (err != cudaSuccess) return err;
   const int nb = (n + ST - 1) / ST;
   const dim3 grid((nb + 1) / 2, (r + RS - 1) / RS);
-  kmv_sym_tiles_kernel<KERN, RS><<<grid, THREADS, bytes, st>>>(xp, nrm, vbuf, slots, hyp, n,
-                                                               npad, dp, r);
+  kmv_sym_tiles_kernel<KERN, RS, WIDE><<<grid, THREADS, bytes, st>>>(xp, nrm, vbuf, slots, hyp,
+                                                                     n, npad, dp, r);
   ++*grids;
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
@@ -644,20 +704,32 @@ cudaError_t launch_sym(const float* xp, const float* nrm, const float* vbuf, flo
   return cudaGetLastError();
 }
 
+template <int KERN, bool WIDE>
+cudaError_t dispatch_width(const float* xp, const float* nrm, const float* vbuf, float* out,
+                           float* parts, const Hyper& hyp, int n, int npad, int dp, int r,
+                           int width, int tc, int splits, int* grids, cudaStream_t st) {
+  if (tc && width == 8)
+    return launch_tc<KERN, 8, WIDE>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, splits, grids,
+                                    st);
+  if (tc && width == 32)
+    return launch_tc<KERN, 32, WIDE>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, splits,
+                                     grids, st);
+  if (!tc && width == 1)
+    return launch_sym<KERN, 1, WIDE>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, grids, st);
+  if (!tc && width == 4)
+    return launch_sym<KERN, 4, WIDE>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, grids, st);
+  return cudaErrorInvalidValue;
+}
+
 template <int KERN>
 cudaError_t dispatch(const float* xp, const float* nrm, const float* vbuf, float* out,
                      float* parts, const Hyper& hyp, int n, int npad, int dp, int r, int width,
                      int tc, int splits, int* grids, cudaStream_t st) {
-  if (tc && width == 8)
-    return launch_tc<KERN, 8>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, splits, grids, st);
-  if (tc && width == 32)
-    return launch_tc<KERN, 32>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, splits, grids,
-                               st);
-  if (!tc && width == 1)
-    return launch_sym<KERN, 1>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, grids, st);
-  if (!tc && width == 4)
-    return launch_sym<KERN, 4>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, grids, st);
-  return cudaErrorInvalidValue;
+  if (dp > hyper::STAGED_DIM)
+    return dispatch_width<KERN, true>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, width, tc,
+                                      splits, grids, st);
+  return dispatch_width<KERN, false>(xp, nrm, vbuf, out, parts, hyp, n, npad, dp, r, width, tc,
+                                     splits, grids, st);
 }
 
 }  // namespace

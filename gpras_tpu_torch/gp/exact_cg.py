@@ -1,7 +1,8 @@
-"""Matrix-free exact-GP posterior: batched (preconditioned) conjugate gradients.
+"""Matrix-free exact GP: batched (preconditioned) conjugate gradients and
+stochastic Lanczos quadrature, for serving and for training.
 
-Port of the serving half of ``gpras_tpu/gp/exact_cg.py`` (GPyTorch's BBMM
-engine, Gardner et al. 2018): no (N, N) object is ever stored.
+Port of ``gpras_tpu/gp/exact_cg.py`` (GPyTorch's BBMM engine, Gardner et al.
+2018): no (N, N) object is ever stored.
 
 - ``kmv``: (K + noise I) @ V. A stationary kernel on float32 CUDA tensors at
   N >= 2048 goes to the symmetric fused CUDA kernel
@@ -14,18 +15,37 @@ engine, Gardner et al. 2018): no (N, N) object is ever stored.
 - ``cg_posterior_alpha`` / ``cg_predict``: the posterior mean weights and the
   posterior (mean, variance), the variance by one batched CG solve per chunk
   of queries.
+- ``make_cg_nlml`` / ``make_cg_training_loss``: the training NLML. One mbcg
+  run solves K [y, Z] for the target and the m probes together; the quad
+  term comes from the y column, the log-determinant from SLQ over the probe
+  columns' Lanczos coefficients (``_slq_logdet_from_coeffs``), and the
+  backward contracts the rank-(m + 1) cotangent with dK/dtheta without a
+  Gram (``fused_gram.kgrad``: kernel B5, or B4 below 3,585 points).
+- ``slq_logdet_rr``: the Russian-roulette (randomly truncated, unbiased)
+  SLQ log-determinant.
 
-The SLQ log-determinant, the CG training loss and its gradients are training
-and wait (ROADMAP.md, queue A). ``vmap`` and ``fori_loop`` of the reference
-become Python loops.
+Randomness is an input: the probes (Rademacher z, or u1 (rank, m) and
+u2 (N, m) normal draws from which z = L u1 + sqrt(noise) u2 is formed) and
+the roulette's uniform draw, where the reference takes a PRNG key.
+``precond_probes`` draws the fixed probes ``GPRAS`` trains with. ``vmap``
+and ``fori_loop`` of the reference become batched ops and Python loops.
+
+Arguments of the reference that only steer the TPU are dropped:
+``row_panel``'s effect on the Pallas path, ``sub`` (the Pallas sub-tile),
+``precision`` (the MXU pass count; every matmul here is full fp32 or
+better) and ``col_panel`` on the kernel route (the CUDA contraction takes
+the whole square). ``row_panel`` and ``col_panel`` still size the plain
+loops.
 """
 
 from __future__ import annotations
 
+import math
 from collections.abc import Callable
 
 import torch
 
+from gpras_tpu_torch.gp.priors import log_prior
 from gpras_tpu_torch.ops import fused_gram
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import linalg
@@ -81,10 +101,13 @@ def pivoted_cholesky(kernel: str, params: dict[str, Tensor], x: Tensor,
 
 def make_woodbury_pinv(l: Tensor, noise: Tensor) -> tuple[Callable[[Tensor], Tensor], Tensor]:
     """P^{-1} for P = L L^T + noise I via the Woodbury identity. Returns
-    (pinv(v), logdet_P); the (k, k) capacitance is factorized once."""
+    (pinv(v), logdet_P); the (k, k) capacitance is factorized once. A
+    capacitance that does not factor (non-finite parameters) gives NaN, as
+    the reference's Cholesky does, and no exception or host synchronization."""
     n, k = l.shape
     m = noise * torch.eye(k, dtype=l.dtype, device=l.device) + l.T @ l
-    lm = torch.linalg.cholesky(m)
+    lm, info = torch.linalg.cholesky_ex(m)
+    lm = torch.where(info == 0, lm, torch.nan)
 
     def pinv(v: Tensor) -> Tensor:
         t = torch.cholesky_solve(l.T @ v, lm)  # M^{-1} L^T v
@@ -214,3 +237,206 @@ def cg_predict(kernel: str, params: dict[str, Tensor], x: Tensor, y: Tensor,
     var = K.kdiag(kernel, params, x_test) - quad_all
     var = torch.clamp_min(var, 0.0) + torch.exp(params["log_noise_variance"])
     return mean, var
+
+
+# ------------------------------------------------------------------ training
+
+
+def _slq_terms(alphas: Tensor, betas: Tensor, b2: Tensor) -> Tensor:
+    """Per-probe SLQ terms ||z_i||^2 e1' log(T_i) e1, (m,): each probe's
+    tridiagonal T rebuilt from its CG coefficients, alphas and betas (k, m),
+    and eigendecomposed (``torch.linalg.eigh`` batched over the probes, in
+    the input's dtype). T[0, 0] = 1 / alpha_0, T[j, j] = 1 / alpha_j +
+    beta_{j-1} / alpha_{j-1}, T[j-1, j] = sqrt(beta_{j-1}) / alpha_{j-1}.
+    Frozen steps (alpha = 0) are padded with identity rows, whose log
+    eigenvalue 0 adds nothing; an off-diagonal entry exists only when both
+    its nodes are active (a column frozen by breakdown records an O(1) beta
+    just before it freezes, which would otherwise couple the last Lanczos
+    node into the padding and move every Ritz value)."""
+    a, bt = alphas.mT, betas.mT  # (m, k)
+    active = a > 0
+    safe_a = torch.where(active, a, 1.0)
+    diag = 1.0 / safe_a
+    diag[:, 1:] += torch.where(active[:, :-1], bt[:, :-1] / safe_a[:, :-1], 0.0)
+    off = torch.where(active[:, :-1] & active[:, 1:],
+                      torch.sqrt(torch.clamp_min(bt[:, :-1], 0.0)) / safe_a[:, :-1], 0.0)
+    diag = torch.where(active, diag, 1.0)  # identity padding
+    t = torch.diag_embed(diag) + torch.diag_embed(off, 1) + torch.diag_embed(off, -1)
+    evals, evecs = torch.linalg.eigh(t)
+    w = evecs[:, 0, :] ** 2
+    return b2 * torch.sum(w * torch.log(torch.clamp_min(evals, 1e-30)), dim=-1)
+
+
+def _slq_logdet_from_coeffs(alphas: Tensor, betas: Tensor, b2: Tensor) -> Tensor:
+    """Stochastic Lanczos quadrature: the mean of ``_slq_terms`` over the m
+    probe columns (alphas, betas (k, m); b2 (m,), the probes' squared norms
+    in the preconditioner's metric)."""
+    return torch.mean(_slq_terms(alphas, betas, b2))
+
+
+def precond_probes(n: int, rank: int, probes: int = 16, dtype: torch.dtype = torch.float32,
+                   device: str | torch.device | None = None) -> tuple[Tensor, Tensor]:
+    """(u1 (rank, probes), u2 (n, probes)) standard normal draws from a
+    ``torch.Generator`` seeded 0, drawn on the CPU and then moved, so they are
+    the same on every device: the fixed probes of the preconditioned CG loss
+    (z = L u1 + sqrt(noise) u2 is formed from them at every evaluation)."""
+    gen = torch.Generator().manual_seed(0)
+    u1 = torch.randn((rank, probes), generator=gen, dtype=torch.float64)
+    u2 = torch.randn((n, probes), generator=gen, dtype=torch.float64)
+    return u1.to(dtype=dtype, device=device), u2.to(dtype=dtype, device=device)
+
+
+def _probe_matrix(kernel: str, params: dict[str, Tensor], x: Tensor, draws, noise: Tensor,
+                  precond_rank: int):
+    """(z (N, m), pinv, logdet P): with a rank-k preconditioner P = L L^T +
+    noise I, z = L u1 + sqrt(noise) u2 ~ N(0, P) from ``draws`` = (u1, u2);
+    without one, ``draws`` is z itself (Rademacher), P = I."""
+    if precond_rank > 0:
+        u1, u2 = draws
+        l_pc = pivoted_cholesky(kernel, params, x, precond_rank)
+        pinv, logdet_p = make_woodbury_pinv(l_pc, noise)
+        return l_pc @ u1 + torch.sqrt(noise) * u2, pinv, logdet_p
+    return draws, _identity, torch.zeros((), dtype=x.dtype, device=x.device)
+
+
+def _cg_solves(kernel: str, params: dict[str, Tensor], x: Tensor, y: Tensor, draws,
+               max_iters: int, precond_rank: int, residual_gate: float | None, row_panel: int):
+    """The training loss's forward: (value, alpha, W, V, per-probe SLQ terms,
+    logdet P, relative residuals of every column). One mbcg run of
+    ``max_iters`` iterations at tolerance 1e-6 over b = [y, z]. No host
+    synchronization: the gate stays on the device."""
+    n = x.shape[0]
+    noise = _noise(params, x.dtype)
+    z, pinv, logdet_p = _probe_matrix(kernel, params, x, draws, noise, precond_rank)
+    b = torch.cat([y[:, None], z], dim=1)
+    carry, rz0, stop2 = _mbcg_init(b, max_iters, 1e-6, pinv)
+    sol, _, res, _, alphas, betas, _ = _mbcg_run(
+        lambda v: kmv(kernel, params, x, v, noise, row_panel), carry, 0, max_iters, stop2, pinv)
+    # the mbcg solution's columns are strided views; the kernels take rows
+    alpha, w = sol[:, 0].contiguous(), sol[:, 1:].contiguous()
+    terms = _slq_terms(alphas[:, 1:], betas[:, 1:], rz0[1:])
+    v = pinv(z) if precond_rank > 0 else z
+    value = 0.5 * torch.dot(y, alpha) + 0.5 * (logdet_p + torch.mean(terms)) + \
+        0.5 * n * math.log(2.0 * math.pi)
+    rel = torch.sqrt(torch.sum(res * res, dim=0) / torch.clamp_min(torch.sum(b * b, dim=0), 1e-30))
+    if residual_gate is not None:
+        value = torch.where(torch.max(rel) > residual_gate, torch.inf, value)
+    return value, alpha, w, v.contiguous(), terms, logdet_p, rel
+
+
+def _cotangent_grads(kernel: str, params: dict[str, Tensor], x: Tensor, alpha: Tensor,
+                     w: Tensor, v: Tensor, g: Tensor, inv_m: float,
+                     col_panel: int = 4096) -> dict[str, Tensor]:
+    """dNLML/dparams from the rank-(m + 1) cotangent
+    Kbar = g/2 [inv_m W V^T - alpha alpha^T] (V = P^-1 z under
+    preconditioning, z otherwise: tr(K^-1 dK) = E[(K^-1 z)^T dK (P^-1 z)]
+    for z ~ N(0, P)). Kernels B5/B4 (``fused_gram.kgrad``) on the fused route,
+    the reference's panel loop (``fused_gram.kgrad_plain``) otherwise; then
+    the noise and jitter diagonal, sum_i Kbar_ii times their derivatives."""
+    diag_sum = 0.5 * g * (inv_m * torch.sum(w * v) - torch.sum(alpha * alpha))
+    if _fused(kernel, x):
+        grads = {k: torch.zeros_like(val) for k, val in params.items()}
+        grads.update(fused_gram.kgrad(kernel, params, x, w, v, alpha, g, inv_m))
+    else:
+        grads = fused_gram.kgrad_plain(kernel, params, x, w, v, alpha, g, inv_m, col_panel)
+    grads["log_noise_variance"] = grads["log_noise_variance"] + \
+        diag_sum * torch.exp(params["log_noise_variance"])
+    grads["log_variance"] = grads["log_variance"] + \
+        diag_sum * linalg.default_jitter(x.dtype) * torch.exp(params["log_variance"])
+    return grads
+
+
+class _CGNLML(torch.autograd.Function):
+    """The CG NLML over the parameters ``values`` (named ``names``); saves
+    alpha, W and V for the backward. The preconditioner and the probes get
+    no gradient, as in the reference's custom VJP."""
+
+    @staticmethod
+    def forward(ctx, kernel, opts, names, x, y, draws, *values):
+        params = dict(zip(names, values))
+        value, alpha, w, v, *_ = _cg_solves(kernel, params, x, y, draws, *opts)
+        ctx.kernel, ctx.names = kernel, names
+        ctx.save_for_backward(x, alpha, w, v, *values)
+        return value
+
+    @staticmethod
+    def backward(ctx, g):
+        x, alpha, w, v, *values = ctx.saved_tensors
+        params = dict(zip(ctx.names, values))
+        g = g.to(x.dtype)  # Adam reads the loss in the engine's dtype, the tests in float64
+        grads = _cotangent_grads(ctx.kernel, params, x, alpha, w, v, g, 1.0 / w.shape[1])
+        y_grad = g * alpha if ctx.needs_input_grad[4] else None
+        return (None, None, None, None, y_grad, None, *(grads[k] for k in ctx.names))
+
+
+def make_cg_nlml(kernel: str, probes: int = 16, max_iters: int = 32, row_panel: int = 4096,
+                 precond_rank: int = 0, residual_gate: float | None = None):
+    """Returns ``nlml(params, x, y, draws)``: the matrix-free NLML with its
+    stochastic backward. ``draws``: with ``precond_rank`` > 0 the pair
+    (u1 (rank, probes), u2 (N, probes)) of standard normal draws, from which
+    z = L u1 + sqrt(noise) u2 ~ N(0, P) is formed at the current parameters
+    (P = L L^T + noise I, L the rank-k pivoted Cholesky), and
+    logdet K = logdet P + E[(z^T P^-1 z) e1' log(T) e1]; otherwise the
+    (N, probes) Rademacher probes z. The value is quad + logdet / 2 +
+    N log(2 pi) / 2; the quad term is exact up to the CG tolerance, the
+    log-determinant and the gradient's trace term are stochastic.
+    ``residual_gate``: when any column's final relative CG residual exceeds
+    it, the value is +inf (a linesearch then rejects the point). Differentiable
+    with respect to the parameters and y."""
+    opts = (max_iters, precond_rank, residual_gate, row_panel)
+
+    def nlml(params: dict[str, Tensor], x: Tensor, y: Tensor, draws) -> Tensor:
+        m = (draws[1] if precond_rank > 0 else draws).shape[1]
+        if m != probes:
+            raise ValueError(f"make_cg_nlml was made for {probes} probes, got {m}")
+        names = tuple(params)
+        return _CGNLML.apply(kernel, opts, names, x, y, draws, *(params[k] for k in names))
+
+    return nlml
+
+
+def make_cg_training_loss(kernel: str, probes: int = 16, max_iters: int = 32, **kwargs):
+    """``loss(params, x, y, draws)``: the CG NLML minus the log prior."""
+    nlml = make_cg_nlml(kernel, probes, max_iters, **kwargs)
+
+    def loss(params: dict[str, Tensor], x: Tensor, y: Tensor, draws) -> Tensor:
+        return nlml(params, x, y, draws) - log_prior(params)
+
+    return loss
+
+
+def rr_depth(u: float, q: float = 0.6, n_tail: int = 8) -> int:
+    """The roulette's truncation J = min(G, n_tail), P(G >= j) = q^j, from one
+    uniform draw ``u`` (the reference's host-side sample)."""
+    return min(int(math.floor(math.log(max(u, 1e-30)) / math.log(q))), n_tail)
+
+
+def slq_logdet_rr(kernel: str, params: dict[str, Tensor], x: Tensor, draws, j_trunc: int,
+                  base_iters: int = 16, seg_iters: int = 8, q: float = 0.6,
+                  precond_rank: int = 0) -> Tensor:
+    """Russian-roulette SLQ: an unbiased estimate of the depth
+    ``base_iters + n_tail * seg_iters`` quadrature of logdet(K + noise I).
+
+    Telescopes the quadrature over the depths k_j = base + j seg,
+    Q_K = Q_0 + sum_j (Q_j - Q_{j-1}), truncates at J = ``j_trunc`` (the
+    caller's draw: ``rr_depth`` of a uniform, as the reference samples it on
+    the host), runs mbcg only to depth k_J and reweights the surviving
+    increments by 1 / q^j. ``draws`` are the probes as ``make_cg_nlml`` takes
+    them; the preconditioned path adds the analytic logdet P. Returns a
+    scalar."""
+    noise = _noise(params, x.dtype)
+    depth = base_iters + j_trunc * seg_iters
+    z, pinv, logdet_p = _probe_matrix(kernel, params, x, draws, noise, precond_rank)
+    _, alphas, betas, rz0 = mbcg(lambda v: kmv(kernel, params, x, v, noise), z,
+                                 max_iters=depth, tol=1e-12,
+                                 pinv=pinv if precond_rank > 0 else None)
+
+    def q_at(k_nodes: int) -> Tensor:
+        keep = (torch.arange(depth, device=x.device) < k_nodes).to(alphas.dtype)[:, None]
+        return _slq_logdet_from_coeffs(alphas * keep, betas * keep, rz0)
+
+    qs = [q_at(base_iters + j * seg_iters) for j in range(j_trunc + 1)]
+    est = qs[0]
+    for j in range(1, j_trunc + 1):
+        est = est + (qs[j] - qs[j - 1]) / (q ** j)
+    return est + logdet_p

@@ -11,9 +11,10 @@ Training follows the reference's engine ladder (``_loss_fn``): the dense
 custom-gradient NLML up to ``SUPER_THRESHOLD`` points (the reference's
 "lean" panel-scan backward between 8,192 and 16,384 points maps to it), the
 Hutchinson stochastic-trace engine (``gp/exact_stochastic.py``, kernels
-B1, B4 and B5) up to ``CG_THRESHOLD``. The matrix-free CG training loss
-above it is not ported yet and raises (ROADMAP.md item A1), as does a
-distributed fit (``mesh=``).
+B1, B4 and B5) up to ``CG_THRESHOLD``, and above it the matrix-free CG
+engine (``gp/exact_cg.make_cg_training_loss``: mbcg over kernel B3, SLQ, the
+backward through B5), which holds no (N, N) buffer. A distributed fit
+(``mesh=``) is not ported yet and raises (ROADMAP.md item A6).
 
 The posterior cache follows the reference's ladder: a dense Cholesky factor
 per mode up to ``SUPER_THRESHOLD`` training points, the matrix-free CG engine
@@ -36,7 +37,7 @@ import torch
 
 from gpras_tpu_torch.fit import optimizers as fitters
 from gpras_tpu_torch.gp import exact as exact_gp
-from gpras_tpu_torch.gp import exact_stochastic, warmstart
+from gpras_tpu_torch.gp import exact_cg, exact_stochastic, warmstart
 from gpras_tpu_torch.gp.exact_cg import cg_posterior_alpha, cg_predict, pivoted_cholesky
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import linalg
@@ -90,9 +91,9 @@ class GPRAS:
                  dtype: Any = torch.float32, exact_engine: str = "auto",
                  device: str | torch.device = "cuda") -> None:
         """``exact_engine`` picks the training loss ("auto" scales with N:
-        dense, then Hutchinson above 16,384 points; "dense", "lean" (= dense
-        here), "hutchinson"; "cg" is not ported for training). For serving,
-        "cg" forces the matrix-free posterior at any N."""
+        dense, then Hutchinson above 16,384 points, then the matrix-free CG
+        engine above 55,000; "dense", "lean" (= dense here), "hutchinson",
+        "cg"). For serving, "cg" forces the matrix-free posterior at any N."""
         if kernel not in K.KERNEL_NAMES:
             raise ValueError(f"Unknown kernel {kernel!r}")
         if model_type not in ("sgpr", "svgp", "exact"):
@@ -118,6 +119,8 @@ class GPRAS:
         self._cache: tuple | None = None
         self._hutch_loss = None
         self._probes: Tensor | None = None
+        self._cg_loss = None
+        self._cg_draws: tuple[Tensor, Tensor] | None = None
 
     # ------------------------------------------------------------------ fitting
 
@@ -155,16 +158,20 @@ class GPRAS:
         self._cache = None
         self.params = None
         self.fit_info = None
-        self.x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
-        self.y = torch.as_tensor(y, dtype=self.dtype, device=self.device)
+        # contiguous: the CUDA kernels take row-major tensors (a strided
+        # caller's x, or a rung's subsample, would be refused on the card)
+        self.x = torch.as_tensor(x, dtype=self.dtype, device=self.device).contiguous()
+        self.y = torch.as_tensor(y, dtype=self.dtype, device=self.device).contiguous()
         if self.y.ndim == 1:
             self.y = self.y[:, None]
         self.n_inducing = int(n_inducing)
         p_modes = self.y.shape[1]
         n = self.x.shape[0]
-        # the engine closure and the probes are built for one N
+        # the engine closures and the probes are built for one N
         self._hutch_loss = None
         self._probes = None
+        self._cg_loss = None
+        self._cg_draws = None
 
         warm_ratio_cap = float(opt_kwargs.pop("warm_ratio_cap", warmstart.DEFAULT_RATIO_CAP))
         self.warm_start_info = None
@@ -174,7 +181,7 @@ class GPRAS:
             stride = -(-n // warm_start_subsample)
             warm = GPRAS(self.kernel_str, model_type="exact", dtype=self.dtype,
                          exact_engine=self.exact_engine, device=self.device)
-            warm.fit(self.x[::stride], self.y[::stride],
+            warm.fit(self.x[::stride].contiguous(), self.y[::stride].contiguous(),
                      optimization_method=optimization_method, **opt_kwargs)
             initial_params = warm.params
             if self.dtype == torch.float32:
@@ -238,9 +245,16 @@ class GPRAS:
         """Mode ``y_i``'s training loss (NLML minus log prior) at ``params``."""
         engine = self._engine()
         if engine == "cg":
-            raise NotImplementedError(
-                "the matrix-free CG training loss (exact_engine='cg', or 'auto' above "
-                f"{self.CG_THRESHOLD} points) is not ported yet (ROADMAP.md item A1)")
+            if self._cg_loss is None:
+                # the reference's knobs: a rank-64 pivoted-Cholesky
+                # preconditioner (in float32 the rank, not the iteration
+                # count, is the conditioning dial), 16 probes, 32 iterations
+                self._cg_loss = exact_cg.make_cg_training_loss(self.kernel_str, probes=16,
+                                                               max_iters=32, precond_rank=64)
+                # fixed draws: a deterministic objective (the reference's PRNGKey(0))
+                self._cg_draws = exact_cg.precond_probes(self.x.shape[0], 64, 16,
+                                                         dtype=self.dtype, device=self.device)
+            return self._cg_loss(params, self.x, y_i, self._cg_draws)
         if engine == "hutchinson":
             n = self.x.shape[0]
             if self._hutch_loss is None:

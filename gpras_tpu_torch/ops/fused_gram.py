@@ -35,6 +35,14 @@ bounds it on an H100 and how the design answers it):
   an even share of the whole walk per block (``kgrad_dense_plan``).
   ``kgrad`` picks between them by the reference's rule.
 
+Any input dimension D: up to STAGED_DIM = 128 a kernel stages every
+coordinate of a point in shared memory; past it B1, B3 and B4/B5 stage the
+first 128 and read the rest from the packed coordinates they keep in device
+memory, and B2's tiled build stages them 128 at a time (its rows design is
+planned only up to 128). The squared distance is accumulated over the whole
+feature axis in the order of the dimensions before the covariance is
+applied, so the plans and bits at D <= 128 are those of the whole staging.
+
 All compute in plain fp32, except B3's 3xTF32 contraction above 16
 right-hand sides (hi/lo split of both operands, ~2^-22 per product; the one
 use of TF32 in the package).
@@ -78,7 +86,12 @@ Tensor = torch.Tensor
 #: kernel name -> the id the CUDA entry points switch on (csrc/kmv.cu)
 KERNEL_IDS = {"RBF": 0, "Matern12": 1, "Matern32": 2, "Matern52": 3, "Exponential": 4}
 TILE = 64        # covariance tile edge of both CUDA kernels
-MAX_DIM = 128    # input dimensions the kernels stage in shared memory
+#: input dimensions a kernel stages in shared memory for a point
+#: (csrc/hyper.cuh): a wider input takes the kernels' wide path, any D
+STAGED_DIM = 128
+#: the first designs kept as timing yardsticks (``_gram_cuda(..., tiles=True)``,
+#: ``_kgrad_cuda(..., tiles=True)``) stage every dimension, up to this many
+FIRST_DESIGN_MAX_DIM = 128
 MAX_PROBES = 128  # probe columns kgrad stages in shared memory
 
 
@@ -126,8 +139,8 @@ class _Hyper(NamedTuple):
 def _kernel_args(kernel: str, params: dict[str, Tensor], xs: tuple[Tensor, ...],
                  others: tuple[Tensor, ...] = ()) -> _Hyper:
     """Check what the CUDA kernels take: float32, contiguous tensors, 2-D
-    coordinates ``xs`` of 1..MAX_DIM dimensions, and one log-variance and one
-    or D log-lengthscales (moved to the coordinates' device as float32 if
+    coordinates ``xs`` of at least one dimension, and one log-variance and
+    one or D log-lengthscales (moved to the coordinates' device as float32 if
     they are not there already)."""
     if kernel not in KERNEL_IDS:
         raise ValueError(f"the fused kernels support {sorted(KERNEL_IDS)}, got {kernel}")
@@ -141,8 +154,8 @@ def _kernel_args(kernel: str, params: dict[str, Tensor], xs: tuple[Tensor, ...],
         if t.dim() != 2:
             raise ValueError(f"the fused kernels take 2-D inputs, got shape {tuple(t.shape)}")
     d = xs[0].shape[1]
-    if not 1 <= d <= MAX_DIM:
-        raise ValueError(f"the fused kernels take 1..{MAX_DIM} input dimensions, got {d}")
+    if d < 1:
+        raise ValueError(f"the fused kernels take at least one input dimension, got {d}")
     dev = xs[0].device
     log_var = params["log_variance"].to(device=dev, dtype=torch.float32)
     log_ls = params["log_lengthscales"].to(device=dev, dtype=torch.float32).reshape(-1)
@@ -205,33 +218,52 @@ class KmvPlan(NamedTuple):
     """How ``kmv_dense`` runs one call (csrc/kmv.cu reads the same fields).
 
     ``rows``: a thread per query row sweeping packed records, else 64 x 64
-    tiles in shared memory. ``splits``: blocks along the column sweep.
+    tiles in shared memory (STAGED_DIM dimensions at a time when wider).
+    ``splits``: blocks along the column sweep.
     ``parts``: float32 elements of scratch for their partial sums (0 without
-    a split). ``grids``: CUDA grids per call."""
+    a split). ``grids``: CUDA grids per call. ``smem``: shared-memory bytes
+    of a block (csrc/kmv.cu's ``rows_smem_floats`` or ``smem_floats``)."""
     rows: bool
     splits: int
     parts: int
     grids: int
+    smem: int
+
+
+def kmv_dense_smem(rows: bool, d: int, r: int) -> int:
+    """Shared-memory bytes of a B2 block. Rows design: a stage's 64 packed
+    records (dp coordinates, the norm, V) and the rows' coordinates past the
+    first 8. Tiled design: the covariance tile, staged rows of V, both
+    tiles' coordinates (min(d, STAGED_DIM) at a time), norms, lengthscales."""
+    if rows:
+        dp = -(-d // 8) * 8
+        rt = 1 if r == 1 else 4 if r <= 4 else 8 if r <= 8 else 16
+        tail = 4 + (0 if rt == 1 else rt)
+        return 4 * (TILE * (dp + tail) + (TILE * (dp - 4) if dp > 8 else 0) + dp)
+    tr = 1 if r <= 16 else 4 if r <= 64 else 16
+    return 4 * (TILE * (TILE + 4) + 16 * 16 * tr + 2 * min(d, STAGED_DIM) * TILE + 2 * TILE + d)
 
 
 @functools.cache
-def kmv_dense_plan(n1: int, n2: int, r: int, sms: int = 132) -> KmvPlan:
+def kmv_dense_plan(n1: int, n2: int, r: int, sms: int = 132, d: int = 1) -> KmvPlan:
     """The plan of one ``kmv_dense`` call on x1 (n1, d), x2 (n2, d), v (n2, r)
     on a card of ``sms`` SMs. The rows design takes every call of at most
-    SYM_MAX_R right-hand sides whose 64-row tiles number fewer than two per
-    SM (so the tiles alone could not fill the card), and cuts the column
-    sweep into chunks of whole 64-point stages, as many as put ROWS_DEPTH
-    blocks on each SM. Every other shape takes the tiled design, whose sweep
-    is split over two blocks per SM when the row tiles are fewer."""
+    SYM_MAX_R right-hand sides and STAGED_DIM dimensions (a thread holds its
+    row's coordinates) whose 64-row tiles number fewer than two per SM (so
+    the tiles alone could not fill the card), and cuts the column sweep into
+    chunks of whole 64-point stages, as many as put ROWS_DEPTH blocks on each
+    SM. Every other shape takes the tiled design, whose sweep is split over
+    two blocks per SM when the row tiles are fewer."""
     tiles1, tiles2 = -(-n1 // TILE), -(-n2 // TILE)
-    rows = r <= SYM_MAX_R and tiles1 < 2 * sms
+    rows = r <= SYM_MAX_R and tiles1 < 2 * sms and d <= STAGED_DIM
     if rows:
         per = -(-tiles2 // -(-ROWS_DEPTH * sms // tiles1))
         splits = -(-tiles2 // per)
     else:
         row_blocks = tiles1 * -(-r // (256 if r > 64 else 64 if r > 16 else 16))
         splits = max(1, min(tiles2, -(-2 * sms // row_blocks)))
-    return KmvPlan(rows, splits, splits * n1 * r if splits > 1 else 0, 1 + (splits > 1))
+    return KmvPlan(rows, splits, splits * n1 * r if splits > 1 else 0, 1 + (splits > 1),
+                   kmv_dense_smem(rows, d, r))
 
 
 def _kmv_dense_cuda(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tensor,
@@ -257,7 +289,7 @@ def _kmv_dense_cuda(kernel: str, params: dict[str, Tensor], x1: Tensor, v: Tenso
     nz, nz_value = _scalar_arg(noise if square else None, dev)
     (n1, d), n2, r = x1.shape, xb.shape[0], v.shape[1]
     if plan is None:
-        plan = kmv_dense_plan(n1, n2, r, _sms(dev))
+        plan = kmv_dense_plan(n1, n2, r, _sms(dev), d)
     out = torch.empty((n1, r), dtype=torch.float32, device=dev)
     parts = torch.empty(plan.parts, dtype=torch.float32, device=dev) if plan.parts else out
     fn = library().gpras_kmv_dense
@@ -302,7 +334,8 @@ class SymPlan(NamedTuple):
     ``parts``, the symmetric build's slots (one 64 x R slot per
     upper-triangle tile i <= j of the ``nb`` row tiles) or the split partial
     sums (splits x N x R, 0 without a split). ``grids``: CUDA grids per
-    call."""
+    call. ``smem``: shared-memory bytes of a block, which stages
+    min(dp, STAGED_DIM) coordinates a point (``kmv_sym_smem``)."""
     tc: bool
     width: int
     chunks: int
@@ -313,6 +346,19 @@ class SymPlan(NamedTuple):
     vbuf: int
     parts: int
     grids: int
+    smem: int
+
+
+def kmv_sym_smem(tc: bool, width: int, dp: int) -> int:
+    """Shared-memory bytes of a B3 block (csrc/kmv_sym.cu: two stages of
+    ``tc_stage_floats``, or ``sym_smem_floats``) for dp padded dimensions, of
+    which min(dp, STAGED_DIM) are staged."""
+    sdp = min(dp, STAGED_DIM)
+    if tc:  # per stage: V's split fragments (Tc<NT>::V_FLOATS), coordinates, norms
+        v_floats = SYM_STAGE // 8 * 4 * (8 * (4 * width + 4) + 8)
+        return 4 * 2 * (v_floats + SYM_STAGE * sdp + SYM_STAGE)
+    stage = TILE * (sdp + 4) + TILE + TILE * width
+    return 4 * (2 * stage + TILE * (sdp + 4) + TILE + 8 * TILE * width)
 
 
 def _tc_plan(n: int, d: int, r: int, splits: int) -> SymPlan:
@@ -321,9 +367,10 @@ def _tc_plan(n: int, d: int, r: int, splits: int) -> SymPlan:
     npad = -(-n // SYM_ROWS) * SYM_ROWS
     width = 8 if r <= 64 else 32
     chunks = -(-r // (8 * width))
-    return SymPlan(True, width, chunks, splits, npad, -(-d // 8) * 8, -(-n // TILE),
+    dp = -(-d // 8) * 8
+    return SymPlan(True, width, chunks, splits, npad, dp, -(-n // TILE),
                    chunks * npad * 16 * width, splits * n * r if splits > 1 else 0,
-                   2 + (splits > 1))
+                   2 + (splits > 1), kmv_sym_smem(True, width, dp))
 
 
 @functools.cache
@@ -345,8 +392,9 @@ def kmv_sym_plan(n: int, d: int, r: int, sms: int = 132) -> SymPlan:
     nb = -(-n // TILE)
     width = 1 if r == 1 else 4
     chunks = -(-r // width)
-    return SymPlan(False, width, chunks, 1, npad, -(-d // 8) * 8, nb, chunks * npad * width,
-                   nb * (nb + 1) // 2 * TILE * r, 3)
+    dp = -(-d // 8) * 8
+    return SymPlan(False, width, chunks, 1, npad, dp, nb, chunks * npad * width,
+                   nb * (nb + 1) // 2 * TILE * r, 3, kmv_sym_smem(False, width, dp))
 
 
 def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
@@ -360,10 +408,12 @@ def kmv_sym(kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
                         params, x, v, noise)
 
 
-def _kmv_sym_run(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
-                 noise: Tensor | float | None) -> Tensor:
-    """B3 on CUDA tensors through ``plan`` (``kmv_sym``'s, or another build
-    of the same function that examples/torch_kmv_sym_timing.py times)."""
+def _kmv_sym_cuda(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
+                  noise: Tensor | float | None
+                  ) -> tuple[Callable[[], int], Tensor, ctypes.c_int]:
+    """B3 on CUDA tensors through ``plan``: checks, allocates, and returns
+    (launch, out, grids); ``launch()`` enqueues the call's grids and returns
+    the CUDA error code, and sets ``grids`` to the number it launched."""
     from gpras_tpu_torch.ops._build import library
 
     if v.dim() != 2:
@@ -385,10 +435,18 @@ def _kmv_sym_run(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tenso
     parts = vbuf + 4 * sizes[2] if plan.parts else out.data_ptr()
     grids = ctypes.c_int(0)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = library().gpras_kmv_sym(hyp.kid, x.data_ptr(), v.data_ptr(), out.data_ptr(), xp, nrm,
-                                 vbuf, parts, *hyp.args(), _ptr(nz), nz_value, n, d, r,
-                                 plan.npad, plan.dp, plan.width, int(plan.tc), plan.splits,
-                                 ctypes.byref(grids), stream)
+    args = (hyp.kid, x.data_ptr(), v.data_ptr(), out.data_ptr(), xp, nrm, vbuf, parts,
+            *hyp.args(), _ptr(nz), nz_value, n, d, r, plan.npad, plan.dp, plan.width,
+            int(plan.tc), plan.splits, ctypes.byref(grids), stream)
+    return _launcher(library().gpras_kmv_sym, args, (hyp, nz, scratch)), out, grids
+
+
+def _kmv_sym_run(plan: SymPlan, kernel: str, params: dict[str, Tensor], x: Tensor, v: Tensor,
+                 noise: Tensor | float | None) -> Tensor:
+    """B3 on CUDA tensors through ``plan`` (``kmv_sym``'s, or another build
+    of the same function that examples/torch_kmv_sym_timing.py times)."""
+    launch, out, grids = _kmv_sym_cuda(plan, kernel, params, x, v, noise)
+    rc = launch()
     kmv_sym.launches += 1
     kmv_sym.grids += grids.value
     _check(rc, "kmv_sym")
@@ -426,8 +484,9 @@ SM_SMEM_BYTES = 228 * 1024  # shared memory of one H100 SM, 1 KB of it reserved 
 
 def gram_smem(d: int) -> int:
     """Shared-memory bytes of a B1 block: a tile and its mirror staged for
-    the stores, and two input stages of both sides' packed points."""
-    return 4 * (2 * GRAM_OBUF + 4 * (d + 1) * TILE)
+    the stores, and two input stages of both sides' packed points, each
+    min(d, STAGED_DIM) coordinates and the norm."""
+    return 4 * (2 * GRAM_OBUF + 4 * (min(d, STAGED_DIM) + 1) * TILE)
 
 
 class GramPlan(NamedTuple):
@@ -441,7 +500,9 @@ class GramPlan(NamedTuple):
     points. ``smem``: shared-memory bytes of a block (``gram_smem``).
     ``store``: how the staged tiles leave (GRAM_STORE_*: 16-byte streaming
     stores when N2 % 4 == 0, else 4-byte ones). ``grids``:
-    CUDA grids per call (the pack grid of each side, then the tiles)."""
+    CUDA grids per call (the pack grid of each side, then the tiles).
+    ``staged``: coordinates staged per point, d or, wider, STAGED_DIM (the
+    rest are read from the packed points in device memory)."""
     nb1: int
     nb2: int
     tiles: int
@@ -451,6 +512,7 @@ class GramPlan(NamedTuple):
     smem: int
     store: int
     grids: int
+    staged: int
 
 
 @functools.cache
@@ -463,9 +525,6 @@ def gram_plan(n1: int, n2: int, d: int, square: bool, sms: int = 132,
     if square and n1 != n2:
         raise ValueError(f"a square Gram has n1 == n2, got {n1} and {n2}")
     smem = gram_smem(d)
-    if smem > SMEM_BYTES:
-        raise ValueError(f"gram: a block stages {d + 1} floats per point (D = {d}) in "
-                         f"{smem} bytes, more than the {SMEM_BYTES} of its shared memory")
     nb1, nb2 = -(-n1 // TILE), -(-n2 // TILE)
     tiles = nb1 * (nb1 + 1) // 2 if square else nb1 * nb2
     store = GRAM_STORE_VECTOR if n2 % 4 == 0 else GRAM_STORE_SCALAR
@@ -473,7 +532,7 @@ def gram_plan(n1: int, n2: int, d: int, square: bool, sms: int = 132,
         per_sm = max(1, min(GRAM_MAX_PER_SM, SM_SMEM_BYTES // (smem + 1024)))
     pack = (nb1 if square else nb1 + nb2) * (d + 1) * TILE
     return GramPlan(nb1, nb2, tiles, max(1, min(tiles, per_sm * sms)), d + 1, pack, smem, store,
-                    2 if square else 3)
+                    2 if square else 3, min(d, STAGED_DIM))
 
 
 def _gram_cuda(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | None,
@@ -494,6 +553,9 @@ def _gram_cuda(kernel: str, params: dict[str, Tensor], x1: Tensor, x2: Tensor | 
     dev = x1.device
     nz, nz_value = _scalar_arg(noise if square else None, dev)
     (n1, d), n2 = x1.shape, xb.shape[0]
+    if tiles and d > FIRST_DESIGN_MAX_DIM:
+        raise ValueError(f"gram's first design (tiles=True) stages 1..{FIRST_DESIGN_MAX_DIM} "
+                         f"input dimensions, got {d}")
     out = torch.empty((n1, n2), dtype=torch.float32, device=dev)
     if tiles:  # scratch: the coordinates divided by the lengthscales; no plan
         scratch = torch.empty(n1 * d + (0 if square else n2 * d), dtype=torch.float32,
@@ -583,7 +645,10 @@ class KgradPlan(NamedTuple):
     the sweep repeats per 8 dimensions (``dp // 8`` times). ``fields``: floats
     per packed point (dp + 2 m + 1). ``stages``: column tiles in flight in a
     block's shared-memory ring. Scratch: ``pack`` float32 elements,
-    ``partial`` float64 elements. ``grids``: CUDA grids per call."""
+    ``partial`` float64 elements. ``grids``: CUDA grids per call.
+    ``staged``: floats per staged point, min(dp, STAGED_DIM) + 2 m + 1 (the
+    coordinates past STAGED_DIM are read from the packed tiles in device
+    memory)."""
     nb: int
     groups: int
     segs: int
@@ -594,20 +659,25 @@ class KgradPlan(NamedTuple):
     pack: int
     partial: int
     grids: int
+    staged: int
 
 
-def _kgrad_stages(fields: int, d: int, m: int, name: str) -> int:
-    """Depth of the strips' ring: three stages while four blocks with their
-    row side then fit an SM's shared memory, else as deep as one block's
-    share allows."""
-    tile_bytes = fields * TILE * 4
+def _kgrad_staged(dp: int, m: int) -> int:
+    return min(dp, STAGED_DIM) + 2 * m + 1
+
+
+def _kgrad_stages(staged: int, d: int, m: int, name: str) -> int:
+    """Depth of the strips' ring of tiles of ``staged`` floats a point:
+    three stages while four blocks with their row side then fit an SM's
+    shared memory, else as deep as one block's share allows."""
+    tile_bytes = staged * TILE * 4
     if 4 * 4 * tile_bytes <= SMEM_BYTES:
         return 3
     if 3 * tile_bytes <= SMEM_BYTES:
         return 2
     if 2 * tile_bytes <= SMEM_BYTES:
         return 1
-    raise ValueError(f"{name}: {fields} floats per point (D = {d}, m = {m}) do not fit "
+    raise ValueError(f"{name}: {staged} floats per point (D = {d}, m = {m}) do not fit "
                      "a block's shared memory twice")
 
 
@@ -624,8 +694,9 @@ def kgrad_sym_plan(n: int, d: int, m: int, sms: int = 132, per: int | None = Non
         per = max(KGRAD_MIN_TILES, -(-(nb + 1) // -(-KGRAD_DEPTH * sms // pairs)))
     segs = -(-(nb + 1) // per)
     per = -(-(nb + 1) // segs)  # as the kernel's entry point derives it
-    return KgradPlan(nb, pairs, segs, per, dp, fields, _kgrad_stages(fields, d, m, "kgrad_sym"),
-                     nb * fields * TILE, (1 + dp) * pairs * segs, 3)
+    staged = _kgrad_staged(dp, m)
+    return KgradPlan(nb, pairs, segs, per, dp, fields, _kgrad_stages(staged, d, m, "kgrad_sym"),
+                     nb * fields * TILE, (1 + dp) * pairs * segs, 3, staged)
 
 
 @functools.cache
@@ -638,8 +709,9 @@ def kgrad_dense_plan(n: int, d: int, m: int, sms: int = 132) -> KgradPlan:
     dp = -(-d // 8) * 8
     fields = dp + 2 * m + 1
     blocks = max(1, min(nb * (nb + 1) // 2, KGRAD_DENSE_PER_SM * sms))
-    return KgradPlan(nb, blocks, 1, 0, dp, fields, _kgrad_stages(fields, d, m, "kgrad_dense"),
-                     nb * fields * TILE, (1 + dp) * blocks, 3)
+    staged = _kgrad_staged(dp, m)
+    return KgradPlan(nb, blocks, 1, 0, dp, fields, _kgrad_stages(staged, d, m, "kgrad_dense"),
+                     nb * fields * TILE, (1 + dp) * blocks, 3, staged)
 
 
 def _kgrad_cuda(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w: Tensor,
@@ -666,6 +738,9 @@ def _kgrad_cuda(sym: bool, kernel: str, params: dict[str, Tensor], x: Tensor, w:
     hyp = _kernel_args(kernel, params, (x,), (w, z, alpha))
     dev = x.device
     d = x.shape[1]
+    if tiles and d > FIRST_DESIGN_MAX_DIM:
+        raise ValueError(f"kgrad's first port (tiles=True) stages 1..{FIRST_DESIGN_MAX_DIM} "
+                         f"input dimensions, got {d}")
     gt, g_value = _scalar_arg(g, dev)
     out = torch.empty(d + 1, dtype=torch.float32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream

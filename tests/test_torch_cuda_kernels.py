@@ -135,7 +135,8 @@ def test_kmv_dense_designs_agree(device, r):
     params, x1, x2, v = _inputs(device, 256, 5003, 8, r, seed=12)
     rows = fused_gram.kmv_dense("Matern52", params, x1, v, x2=x2)
     launch, tiled = fused_gram._kmv_dense_cuda(
-        "Matern52", params, x1, v, x2, None, plan=fused_gram.KmvPlan(False, 33, 33 * 256 * r, 2))
+        "Matern52", params, x1, v, x2, None, plan=fused_gram.KmvPlan(False, 33, 33 * 256 * r, 2,
+                                                    fused_gram.kmv_dense_smem(False, 8, r)))
     assert launch() == 0
     torch.cuda.synchronize()
     assert (rows - tiled).abs().max().item() <= 1e-5 * rows.abs().max().item()
@@ -177,10 +178,67 @@ def test_kmv_sym_matches_plain_wide_inputs(device, r, d):
     assert (got.double() - want).abs().max().item() <= TOL * want.abs().max().item()
 
 
-def test_kmv_sym_raises_past_128_dimensions(device):
+def _close(got, want):
+    return (got.double() - want).abs().max().item() <= TOL * want.abs().max().item()
+
+
+# Past 128 input dimensions the kernels used to refuse; now each takes its
+# wide path (fused_gram.STAGED_DIM): B1, B3 and B4/B5 stage the first 128
+# coordinates and read the rest from their packed copy, B2's tiled build
+# stages 128 at a time (its rows design is not planned there). B1-B5 against
+# their plain versions at D = 129, 200 and 300: B1 square and cross, B2 at a
+# serving-bucket shape (R = 1) and a tiled one (R = 64), B3 through both
+# builds (R = 1, 7, 64, 300), B4 and B5 with m = 16 probes. The coordinates
+# are scaled by sqrt(4 / D), so the covariances stay far from 0 and 1.
+@pytest.mark.parametrize("d", [129, 200, 300])
+def test_kmv_sym_raises_past_128_dimensions(device, d):
+    params, x1, x2, v = _inputs(device, 1999, 1001, d, 300, seed=d)
+    x1 = (x1 * (4.0 / d) ** 0.5).contiguous()
+    x2 = (x2 * (4.0 / d) ** 0.5).contiguous()
+    p64 = _f64(params)
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    assert fused_gram.gram_plan(1999, 1999, d, True, sms).staged == fused_gram.STAGED_DIM
+    for b in (None, x2):
+        got = fused_gram.gram("Matern52", params, x1, b, noise=0.2)
+        want = fused_gram.gram_plain("Matern52", p64, x1.double(),
+                                     None if b is None else b.double(), noise=0.2)
+        assert _close(got, want)
+        assert got.abs().min().item() < 0.5 * got.abs().max().item()
+    for n1, r in ((256, 1), (256, 64)):
+        q = x1[:n1].contiguous()
+        vv = torch.tensor(np.random.default_rng(d + r).normal(size=(8192, r)),
+                          dtype=torch.float32, device=device)
+        xb = torch.cat([x2] * 9)[:8192].contiguous()
+        assert not fused_gram.kmv_dense_plan(n1, 8192, r, sms, d).rows
+        got = fused_gram.kmv_dense("Matern52", params, q, vv, x2=xb)
+        want = fused_gram.kmv_plain("Matern52", p64, q.double(), vv.double(), x2=xb.double())
+        assert _close(got, want)
+    for r in (1, 7, 64, 300):
+        vr = v[:, :r].contiguous()
+        got = fused_gram.kmv_sym("Matern52", params, x2, vr, noise=0.3)
+        want = fused_gram.kmv_plain("Matern52", p64, x2.double(), vr.double(), noise=0.3)
+        assert _close(got, want)
+    pk, xk, w, z, alpha = _kgrad_inputs(device, 1999, d, 16, seed=d + 1)
+    xk = (xk * (4.0 / d) ** 0.5).contiguous()
+    want = fused_gram.kgrad_plain("Matern52", _f64(pk), xk.double(), w.double(), z.double(),
+                                  alpha.double(), 1.7, 1.0 / 16)
+    want_v = torch.cat([want["log_variance"].reshape(1), want["log_lengthscales"]])
+    for sym in (False, True):
+        got = fused_gram.kgrad("Matern52", pk, xk, w, z, alpha, 1.7, 1.0 / 16, sym=sym)
+        assert _close(torch.cat([got["log_variance"].reshape(1), got["log_lengthscales"]]),
+                      want_v)
+    torch.cuda.synchronize()
+
+
+# the first designs, kept as timing yardsticks, keep their cap and refuse
+# past it by name
+def test_first_designs_refuse_past_their_cap(device):
     params, x, _, v = _inputs(device, 300, 300, 129, 4, seed=5)
-    with pytest.raises(ValueError, match="input dimensions"):
-        fused_gram.kmv_sym("RBF", params, x, v, noise=0.1)
+    with pytest.raises(ValueError, match="first design"):
+        fused_gram._gram_cuda("RBF", params, x, None, 0.1, tiles=True)
+    with pytest.raises(ValueError, match="first port"):
+        fused_gram._kgrad_cuda(True, "RBF", params, x, v, v, v[:, 0].contiguous(), 1.0, 0.25,
+                               tiles=True)
 
 
 # the grids a call launches, as the kernel's entry point counts them, are the
@@ -525,3 +583,26 @@ def test_gram_scales_as_pytorch_does(device, kernel):
     unit = {**params, "log_lengthscales": torch.zeros(5, device=device)}
     got = fused_gram.gram(kernel, params, x1, x2)
     assert torch.equal(got, fused_gram.gram(kernel, unit, x1 / ls, x2 / ls))
+
+
+# C1, strided training inputs: the Hutchinson engine at N = 4,096 with a
+# 2,048-point warm-start rung (every second point; its backward takes B4, the
+# full-N one B5), once with a contiguous x and once with a strided one (every
+# other column of a wider array). Before the repair the rung's x reached B4
+# as a (2,048, 3) view with strides (6, 1) and was refused.
+def test_fit_takes_strided_inputs_on_the_card(device):
+    from gpras_tpu_torch.gp.model import GPRAS
+
+    g = np.random.default_rng(3)
+    wide = torch.tensor(g.normal(size=(4096, 6)), dtype=torch.float32, device=device)
+    x = wide[:, ::2]
+    y = torch.sin(x[:, 0]) + 0.1 * torch.tensor(g.normal(size=4096), dtype=torch.float32,
+                                                device=device)
+    assert not x.is_contiguous()
+    for xx in (x.contiguous(), x):
+        before = (fused_gram.kgrad_dense.launches, fused_gram.kgrad_sym.launches)
+        model = GPRAS("Matern52", model_type="exact", exact_engine="hutchinson", device=device)
+        model.fit(xx, y, optimization_method="adam", max_iter=2, warm_start_subsample=2048)
+        assert torch.isfinite(model.fit_info["losses"]).all()
+        assert fused_gram.kgrad_dense.launches > before[0]
+        assert fused_gram.kgrad_sym.launches > before[1]

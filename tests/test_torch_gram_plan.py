@@ -88,10 +88,11 @@ def test_gram_plan_scratch_and_shared_memory(d, aligned):
                               else fused_gram.GRAM_STORE_SCALAR)
         assert plan.pack == (plan.nb1 + (0 if square else plan.nb2)) * (d + 1) * T
         assert plan.grids == (2 if square else 3)
-        # the tile and its mirror staged, and two input stages of both sides,
-        # fit one block; as many blocks an SM as fit together, at most the
-        # launch bounds' three
-        assert plan.smem == 4 * (2 * fused_gram.GRAM_OBUF + 4 * (d + 1) * T)
+        # the tile and its mirror staged, and two input stages of both sides
+        # (up to STAGED_DIM coordinates and the norm), fit one block; as many
+        # blocks an SM as fit together, at most the launch bounds' three
+        assert plan.staged == min(d, fused_gram.STAGED_DIM)
+        assert plan.smem == 4 * (2 * fused_gram.GRAM_OBUF + 4 * (plan.staged + 1) * T)
         assert plan.smem <= fused_gram.SMEM_BYTES
         per_sm = plan.blocks // 132
         assert 1 <= per_sm <= fused_gram.GRAM_MAX_PER_SM
@@ -119,10 +120,17 @@ def test_gram_plan_refuses_a_square_of_two_sizes():
 
 @pytest.mark.parametrize("square", [True, False])
 def test_gram_plan_refuses_what_shared_memory_cannot_hold(square):
-    # D = 193 is the widest a block stages in 227 KB (test above); one more
-    # dimension is refused by name, before any launch
-    with pytest.raises(ValueError, match="gram.*shared memory"):
-        fused_gram.gram_plan(2048, 2048, 194, square)
+    # a whole record of D = 194 would not fit a block's 227 KB; the planned
+    # design stages STAGED_DIM coordinates and reads the rest from the packed
+    # points, so it takes any D, while the first design, kept as a timing
+    # yardstick, stages every coordinate and refuses past 128 by name, before
+    # any launch
+    plan = fused_gram.gram_plan(2048, 2048, 194, square)
+    assert plan.staged == fused_gram.STAGED_DIM and plan.smem <= fused_gram.SMEM_BYTES
+    params = {"log_variance": torch.tensor(0.0), "log_lengthscales": torch.zeros(194)}
+    x = torch.zeros((64, 194))
+    with pytest.raises(ValueError, match="first design"):
+        fused_gram._gram_cuda("RBF", params, x, None if square else x, 0.1, tiles=True)
 
 
 def test_staged_tile_layout_keeps_rows_whole():

@@ -154,8 +154,10 @@ def test_params_from_numpy_round_trip(artifacts):
 def test_port_refuses_what_it_does_not_serve(artifacts):
     out, _ = artifacts
     model = TGPRAS.from_file(out / "gp_cg.npz", device="cpu")
-    with pytest.raises(NotImplementedError, match="A1"):
-        model.fit(np.zeros((4, D)), np.zeros((4, P)))
+    # its engine, "cg", now trains (tests/test_torch_cg_train.py); a
+    # mesh-distributed fit is still refused
+    with pytest.raises(NotImplementedError, match="A6"):
+        model.fit(np.zeros((4, D)), np.zeros((4, P)), mesh="auto")
     with pytest.raises(NotImplementedError, match="sgpr"):
         TGPRAS("RBF", model_type="sgpr", device="cpu")
 
