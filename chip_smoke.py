@@ -3,9 +3,10 @@
 
 Drives the exact-GP serving path and the exact-GP training path once each at
 full width (N = 49,152 training points, D = 8 inputs, Matern52, P = 4 EOF
-modes, 49,152-cell fields), and the matrix-free CG training path at
-N = 131,072, through the entry points a user calls, and checks every CUDA
-kernel on those paths:
+modes, 49,152-cell fields), the matrix-free CG training path at
+N = 131,072, the SGPR backend (fit and serve, N = 49,152) and the cold exact
+fit (Hutchinson at N = 49,152, CG at N = 65,536), through the entry points a
+user calls, and checks every CUDA kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
@@ -23,8 +24,10 @@ kernel on those paths:
    ceiling (torch's fill_ of the same 9.66 GB, timed in turns with B1's
    grids); then the CG training path's shapes, B3 at N = 131,072, R = 17
    (with the library call at N = 49,152, R = 17) and B5 at N = 131,072,
-   m = 16; and every kernel at D = 300, past the 128 dimensions a kernel
-   stages in shared memory (the kernels' wide path)
+   m = 16; the cold CG fit's shapes, B3 at N = 65,536, R = 128 (beside the
+   library call on a 17.2 GB prebuilt Gram) and B5 at m = 127; and every
+   kernel at D = 300, past the 128 dimensions a kernel stages in shared
+   memory (the kernels' wide path)
 3. serving: write a checkpoint and two EOF preprocessors with the port, load
    them in PosteriorPredictor(device="cuda"), answer two LF-field requests,
    and show through the launch counters that B2 and B3 ran (and how many
@@ -49,6 +52,19 @@ kernel on those paths:
    steps per mode on the CG loss: B3 every mbcg iteration, B5 the backward),
    its launches and peak device memory, and a breakdown of one full-N CG
    step
+10. SGPR, the default backend: GPRAS("Matern52").fit with 300 k-means
+   inducing points and the default two-stage Adam on phase 5's data, its
+   checkpoint served by PosteriorPredictor to phase 3's requests; B1-B5
+   launch zero times; the fp32 loss against float64 at the fitted
+   parameters and the served posterior against float64 sgpr.predict
+11. the cold exact fit at N = 49,152 (mode 0): gp/coldfit.fit_exact with its
+   defaults (Hutchinson engine, host L-BFGS) until the band of L*
+   (benchmarks/convergence_reference_hard.json); one B1 and one B5 launch
+   per evaluation; the final loss against the float64 dense one
+12. the cold fit's CG engine at N = 65,536: the segmented step's early exit
+   equal bit for bit to the full 256-iteration budget at the initial
+   parameters, and fit_exact with max_iter = 2: segments, gate aborts and
+   seconds per evaluation, B3 and B5 calls, peak device memory
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -78,13 +94,25 @@ N, D, P = 49_152, 8, 4
 N_CG = 131_072     # the CG training path (exact_engine "auto" above 55,000 points)
 R_CG = 17          # its mbcg right-hand sides: y and 16 probes
 D_WIDE = 300       # past fused_gram.STAGED_DIM: every kernel's wide path
-CG_PEAK_GB = 4.0   # phase 9's device-memory limit: the engine holds O(N (R + rank))
+CG_PEAK_GB = 4.0   # phase 9's and 12's device-memory limit: the engine holds O(N (R + rank))
+SGPR_INDUCING = 300  # phase 10: the top of the reference's inducing sweep
+SGPR_LOSS_ULPS = 64  # phase 10's loss limit, in eps32 x sum |ELBO terms| (see phase_sgpr)
+N_COLD = 65_536      # phase 12: the cold fit's CG engine ("auto" at and above 65,536 points)
+R_COLD = 128         # its mbcg right-hand sides: y and 127 probes
+COLD_CG_ITERS = 2    # phase 12's L-BFGS iterations
 GRID = (192, 256)  # 49,152 cells
 M = 16             # Hutchinson probes (the reference's default)
 KERNEL_TOL = 1e-4  # |kernel - plain_f64| <= 1e-4 * max|plain_f64| (see phase 2)
 MEAN_TOL = 1e-3    # served mean vs dense f64: 1e-3 * max|mean|
 VAR_TOL = 1e-2     # served variance vs dense f64: relative
 LOSS_TOL = 1e-5    # full-N float32 training loss vs dense f64: relative (see phase 6)
+# phase 11's limit at the cold fit's converged parameters (noise ~0.01, var /
+# noise ~100): there float32 does not hold LOSS_TOL. The engine's Gram
+# entries (r2 = a2 + b2 - 2ab in fp32, as the reference's) and its fp32
+# Cholesky miss the float64 NLML by 1.300e-5 relative at this phase's final
+# parameters (H100, deterministic) against 1.2e-6 at its start; the limit is
+# 7.7x that, and a dropped log prior (1.9e-3 there) stays caught
+LOSS_TOL_CONVERGED = 1e-4
 # the card's published peaks (NVIDIA H100 SXM data sheet): fp32 outside the
 # tensor cores, TF32 on them (dense), and HBM3 bandwidth; the bound of a
 # kernel is the largest of its operations over the rate of the unit that does
@@ -491,6 +519,35 @@ def phase_kernels():
     del params, x, w, z, alpha
     torch.cuda.empty_cache()
 
+    # The cold fit's CG path (phase 12), Matern52 at N = 65,536: B3 with
+    # R = 128 (y and 127 probes, every mbcg iteration; the 256-column
+    # tensor-core build) beside the library call on a Gram prebuilt by B1
+    # (17.2 GB), and B5 at m = 127 (the backward, normal draws as the path's
+    # V = P^-1 z). The cold Hutchinson fit (phase 11) runs B1 and B5 at
+    # phase 5's shapes, checked above.
+    params, x, _, v = inputs(N_COLD, N_COLD, R_COLD)
+    plan = fused_gram.kmv_sym_plan(N_COLD, D, R_COLD, sms)
+    check("kmv_sym", kernel, f"{N_COLD}x{N_COLD} R={R_COLD}",
+          lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
+          fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
+          lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise),
+          kmv_work(N_COLD, N_COLD, R_COLD, True),
+          library=lambda: prebuilt_matmul(kernel, params, x, None, noise, v),
+          grids=lambda: fused_gram._kmv_sym_cuda(plan, kernel, params, x, v, noise)[:2])
+    m = R_COLD - 1
+    w, z = (torch.randn(N_COLD, m, generator=gen).to(dev) for _ in range(2))
+    alpha = torch.randn(N_COLD, generator=gen).to(dev)
+    check("kgrad_sym", kernel, f"N={N_COLD} m={m}",
+          lambda: fused_gram.kgrad_sym(kernel, params, x, w, z, alpha, 1.3, 1.0 / m),
+          fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(), z.double(),
+                                 alpha.double(), 1.3, 1.0 / m),
+          lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / m),
+          kgrad_work(N_COLD, D, m),
+          grids=lambda: fused_gram._kgrad_cuda(True, kernel, params, x, w, z, alpha, 1.3,
+                                               1.0 / m))
+    del params, x, v, w, z, alpha
+    torch.cuda.empty_cache()
+
     # Every kernel at D = 300 (the wide path: 128 coordinates a point staged,
     # B2's tiled build 128 at a time; its rows design is not planned past 128):
     # B1 a small square, B2 a serving bucket against 8,192 points, B3 through
@@ -791,23 +848,13 @@ def phase_training_check(model, start):
 
     from gpras_tpu_torch.gp.priors import log_prior
     from gpras_tpu_torch.ops import fused_gram
-    from gpras_tpu_torch.ops import kernels as K
     from gpras_tpu_torch.ops import linalg
 
     loss32 = float(model.fit_info["losses"][0][0])
     p64 = {k: v.double() for k, v in start.items()}
     x64, y64 = model.x.double(), model.y[:, 0].double()
     t0 = time.perf_counter()
-    kmat = torch.empty((N, N), dtype=torch.float64, device=x64.device)
-    for r0 in range(0, N, 4096):
-        kmat[r0:r0 + 4096] = K.gram("Matern52", p64, x64[r0:r0 + 4096], x64)
-    noise64 = torch.exp(p64["log_noise_variance"]) + \
-        linalg.default_jitter(torch.float32) * torch.exp(p64["log_variance"])
-    kmat.diagonal().add_(noise64)
-    chol, info = torch.linalg.cholesky_ex(kmat)
-    del kmat
-    if int(info) != 0:
-        raise AssertionError(f"dense float64 Cholesky failed (info {int(info)})")
+    chol = dense_chol64(p64, x64)
     alpha64 = torch.cholesky_solve(y64[:, None], chol)[:, 0]
     nlml = 0.5 * torch.dot(y64, alpha64) + linalg.logdet_from_chol(chol) / 2 \
         + 0.5 * N * math.log(2.0 * math.pi)
@@ -1092,12 +1139,403 @@ def phase_cg_fit():
     return launches, {**fit, "step_ms": step_ms, "step_parts_ms": parts, "step_rest_ms": rest}
 
 
+def phase_sgpr(out: Path):
+    """SGPR, the default backend, at full width: GPRAS("Matern52") with 300
+    k-means inducing points (the top of the reference's inducing sweep,
+    gpras_tpu/pipeline/cross_validation.py:127) and the default two-stage
+    fit, on phase 5's 4-mode training set; then its checkpoint served by
+    PosteriorPredictor with phase 3's preprocessors and requests. SGPR runs
+    no hand-written kernel: B1-B5 must launch zero times. Checks: mode 0's
+    fp32 training loss at the fitted parameters against a float64
+    evaluation of the same formula, within SGPR_LOSS_ULPS x eps32 x the sum
+    of the ELBO's term magnitudes (see the limit's comment); the served
+    mode-0 posterior of the first request against float64 sgpr.predict,
+    with phase 4's limits."""
+    import torch
+
+    from gpras_tpu_torch import GPRAS, PosteriorPredictor
+    from gpras_tpu_torch.gp import sgpr
+    from gpras_tpu_torch.ops import kernels as K
+
+    x, y, _ = training_set()
+    model = GPRAS("Matern52", device=DEVICE)
+    steps = []  # host clock at each loss evaluation with a gradient
+    loss_fn = model._loss_fn
+
+    def timed_loss(p, y_i):
+        if torch.is_grad_enabled():
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter())
+        return loss_fn(p, y_i)
+
+    model._loss_fn = timed_loss
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(x, y, n_inducing=SGPR_INDUCING)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    del model._loss_fn
+    step_s = statistics.median(b - a for a, b in zip(steps, steps[1:]))
+    model.to_file(out / "sgpr.npz")
+    requests = [synthetic_fields(np.random.default_rng(12 + i), n)[0]
+                for i, n in enumerate((17, 200))]
+    t0 = time.perf_counter()
+    pred = PosteriorPredictor(out / "sgpr.npz", hf_preprocessor_path=out / "hf_pre.npz",
+                              lf_preprocessor_path=out / "lf_pre.npz", buckets=(64, 256),
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    latencies = []
+    for req in requests:
+        t0 = time.perf_counter()
+        field, var = pred.predict_field(req)
+        latencies.append(time.perf_counter() - t0)
+        if field.shape != req.shape or not (np.isfinite(field).all() and (var >= 0).all()):
+            raise AssertionError("SGPR request: wrong shape, non-finite field or negative variance")
+    launches = read_counters()
+    losses = model.fit_info["losses"]
+    log(f"[sgpr] fit of {P} modes at N={N}, M={SGPR_INDUCING} (k-means, two-stage Adam, "
+        f"{len(steps)} gradient steps) in {fit_s:.3f} s, {step_s * 1e3:.2f} ms per step (median); "
+        f"stage-2 losses first {[f'{v:.3f}' for v in losses[:, 0].tolist()]} last "
+        f"{[f'{v:.3f}' for v in model.fit_info['loss'].tolist()]}; cache build {cache_s:.3f} s; "
+        f"requests of 17 / 200 LF fields {latencies[0]:.3f} / {latencies[1]:.3f} s; kernel "
+        f"launches {launches}")
+    if any(launches.values()):
+        raise AssertionError(f"SGPR launched a hand-written kernel: {launches}")
+
+    # (a) the fp32 training loss against float64, same formula. fp32 adds
+    # ~eps32 of each term's magnitude per rounding, and the largest terms
+    # (||y||^2 / 2s2, the trace pair sum kdiag / 2s2 and tr(A A^T) / 2, up
+    # to 4e5 at N = 8,192) carry sums over N and M N entries: measured at
+    # N = 8,192, M = 300 on the CPU, 0.4-1.1 eps32 x sum |terms|; the limit
+    # is 64 x that unit
+    p32 = {k: v[0] for k, v in model.params.items()}
+    p64 = {k: v.double() for k, v in p32.items()}
+    x64, y64 = model.x.double(), model.y[:, 0].double()
+    with torch.no_grad():
+        loss32 = float(model._loss_fn(p32, model.y[:, 0]))
+        loss64 = float(sgpr.training_loss("Matern52", p64, x64, y64))
+        sigma, sigma2, _, a, lb = sgpr._common("Matern52", p64, x64)
+        c = torch.linalg.solve_triangular(lb, a @ y64[:, None], upper=False) / sigma
+        terms = {"n log 2pi / 2": 0.5 * N * math.log(2.0 * math.pi),
+                 "log det LB": float(torch.log(torch.diagonal(lb)).sum()),
+                 "n log s2 / 2": float(0.5 * N * torch.log(sigma2)),
+                 "|y|^2 / 2s2": float(0.5 * (y64 * y64).sum() / sigma2),
+                 "|c|^2 / 2": float(0.5 * (c * c).sum()),
+                 "kdiag / 2s2": float(0.5 * K.kdiag("Matern52", p64, x64).sum() / sigma2),
+                 "tr(A A^T) / 2": float(0.5 * (a * a).sum())}
+        from gpras_tpu_torch.gp.priors import log_prior
+
+        prior = float(log_prior(p64))
+    unit = 2.0 ** -23 * sum(abs(v) for v in terms.values())
+    limit = SGPR_LOSS_ULPS * unit
+    loss_err = abs(loss32 - loss64)
+    trace = terms["kdiag / 2s2"] - terms["tr(A A^T) / 2"]
+    log(f"[sgpr-check] mode 0 training loss at the fitted parameters: float32 {loss32:.6f}, "
+        f"float64 {loss64:.6f}, error {loss_err:.4g} = {loss_err / unit:.3f} x eps32 x "
+        f"sum|terms| ({unit:.4g}; limit {SGPR_LOSS_ULPS} x = {limit:.4g}); terms "
+        + ", ".join(f"{k} {v:.6g}" for k, v in terms.items())
+        + f"; reach: a dropped trace term moves the loss by {trace:.6g} "
+        f"({'caught' if trace > limit else 'NOT caught'}), a dropped log prior by {abs(prior):.4g} "
+        f"({'caught' if abs(prior) > limit else 'NOT caught'})")
+
+    # (b) the served posterior of mode 0 against float64 sgpr.predict
+    xq_np = pred.lf_pre.transform(requests[0])
+    mean, var = pred.predict_modes(xq_np)
+    xq = torch.as_tensor(xq_np, dtype=torch.float64, device=x64.device)
+    with torch.no_grad():
+        want_mean, want_var = (t.cpu().numpy() for t in sgpr.predict("Matern52", p64, x64, y64,
+                                                                      xq))
+    mean_err = float(np.abs(mean[:, 0] - want_mean).max())
+    var_err = float((np.abs(var[:, 0] - want_var) / want_var).max())
+    log(f"[sgpr-check] served mode 0, {len(want_mean)} queries vs float64 sgpr.predict: mean "
+        f"max abs err {mean_err:.3e} (limit {MEAN_TOL} * {np.abs(want_mean).max():.3e}), variance "
+        f"max rel err {var_err:.3e} (limit {VAR_TOL})")
+    if not (loss_err <= limit and mean_err <= MEAN_TOL * np.abs(want_mean).max()
+            and var_err <= VAR_TOL):
+        raise AssertionError("SGPR loss or served posterior disagrees with float64")
+    return {"fit_s": fit_s, "steps": len(steps), "step_s": step_s, "cache_build_s": cache_s,
+            "request_s": dict(zip(("17", "200"), latencies)), "launches": launches,
+            "final_loss": model.fit_info["loss"].tolist(), "loss32": loss32, "loss64": loss64,
+            "loss_err": loss_err, "loss_limit": limit, "loss_err_in_units": loss_err / unit,
+            "trace_term": trace, "log_prior": prior, "mean_err": mean_err, "var_err": var_err}
+
+
+def dense_chol64(p64, x64):
+    """Float64 Cholesky factor of the matrix the float32 engines factor,
+    K + (noise + 1e-6 variance) I, built on the card in row panels."""
+    import torch
+
+    from gpras_tpu_torch.ops import kernels as K
+    from gpras_tpu_torch.ops import linalg
+
+    n = x64.shape[0]
+    kmat = torch.empty((n, n), dtype=torch.float64, device=x64.device)
+    for r0 in range(0, n, 4096):
+        kmat[r0:r0 + 4096] = K.gram("Matern52", p64, x64[r0:r0 + 4096], x64)
+    kmat.diagonal().add_(torch.exp(p64["log_noise_variance"]) + linalg.default_jitter(
+        torch.float32) * torch.exp(p64["log_variance"]))
+    chol, info = torch.linalg.cholesky_ex(kmat)
+    del kmat
+    if int(info) != 0:
+        raise AssertionError(f"dense float64 Cholesky failed (info {int(info)})")
+    return chol
+
+
+def dense_loss64(p32, x, y):
+    """Float64 dense NLML minus log prior of mode ``y`` at the float32
+    parameters ``p32`` (``dense_chol64``'s matrix)."""
+    import torch
+
+    from gpras_tpu_torch.gp.priors import log_prior
+    from gpras_tpu_torch.ops import linalg
+
+    p64 = {k: v.double() for k, v in p32.items()}
+    y64 = y.double()
+    n = x.shape[0]
+    chol = dense_chol64(p64, x.double())
+    alpha = torch.cholesky_solve(y64[:, None], chol)[:, 0]
+    nlml = 0.5 * torch.dot(y64, alpha) + linalg.logdet_from_chol(chol) / 2 \
+        + 0.5 * n * math.log(2.0 * math.pi)
+    del chol, alpha
+    torch.cuda.empty_cache()
+    return float(nlml) - float(log_prior(p64))
+
+
+def phase_cold_hutchinson(x, y):
+    """The cold exact fit at N = 49,152 (mode 0): gp/coldfit.fit_exact with
+    its defaults (engine "auto" takes Hutchinson below 65,536 points: host
+    L-BFGS, 16 fixed probes, noise floor 1e-4), stopping at the band of L*,
+    the converged loss of benchmarks/convergence_reference_hard.json, whose
+    problem training_set reproduces. Checks: the final loss finite and
+    below the initial one; the fp32 loss against the float64 dense NLML
+    minus log prior of the same matrix, within LOSS_TOL (phase 6's check) at
+    the cold start and within LOSS_TOL_CONVERGED at the final parameters;
+    each evaluation fit_exact counts one B1 and one B5 launch, and nothing
+    else launches. Band entry is reported, not required."""
+    import torch
+
+    from gpras_tpu_torch.gp import coldfit, exact, exact_stochastic
+    from gpras_tpu_torch.gp.priors import log_prior
+
+    l_star = json.loads((ROOT / "benchmarks" / "convergence_reference_hard.json").read_text())[
+        "l_star"]
+    x_t = torch.as_tensor(x, device=DEVICE)
+    y0 = torch.as_tensor(y[:, 0], device=DEVICE).contiguous()
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params, info = coldfit.fit_exact("Matern52", x_t, y0, stop_loss=l_star)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    evals = info["evals"]
+    loss = exact_stochastic.make_hutchinson_training_loss("Matern52", fused_gram=True)
+    z = exact_stochastic.rademacher_probes(N, 16, device=DEVICE)
+    params0 = exact.init_params("Matern52", x_t, noise_variance=0.1)
+    with torch.no_grad():
+        initial = float(loss(params0, x_t, y0, z))
+        final32 = float(loss(params, x_t, y0, z))
+    t0 = time.perf_counter()
+    initial64 = dense_loss64(params0, x_t, y0)
+    final64 = dense_loss64(params, x_t, y0)
+    rel0 = abs(initial - initial64) / abs(initial64)
+    rel = abs(final32 - final64) / abs(final64)
+    prior = abs(float(log_prior({k: v.double() for k, v in params.items()})))
+    tol_band = 1e-5 * abs(l_star)
+    bench_band = 50 * tol_band  # patience x tol x |L*|, the bench's band
+    iters = int(info["iterations"])
+    log(f"[cold-hutch] fit_exact at N={N}, mode 0: stopped_by {info['stopped_by']} after {iters} "
+        f"iterations, {evals} evaluations, {fit_s:.3f} s ({fit_s / evals:.3f} s per evaluation); "
+        f"peak device memory {peak_gb:.2f} GB; launches {launches}; losses "
+        f"{[f'{v:.2f}' for v in info['losses'][:iters].tolist()]}")
+    log(f"[cold-hutch] initial loss {initial:.4f} (float64 dense {initial64:.4f}, relative error "
+        f"{rel0:.3e}), final {final32:.4f} (float64 dense {final64:.4f}, relative error "
+        f"{rel:.3e}); limits {LOSS_TOL} at the start, {LOSS_TOL_CONVERGED} at the converged "
+        f"parameters; {time.perf_counter() - t0:.1f} s; reach: a dropped log prior moves the "
+        f"final loss by {prior:.4g} nats ({prior / abs(final64):.3e}, "
+        f"{'caught' if prior > LOSS_TOL_CONVERGED * abs(final64) else 'NOT caught'}); final - L* = "
+        f"{final32 - l_star:.4f} nats (L* {l_star}); inside tol*|L*| = "
+        f"{tol_band:.3f}: {final32 <= l_star + tol_band}; inside the bench's {bench_band:.2f}-nat "
+        f"band: {final32 <= l_star + bench_band}")
+    expect = {"gram": evals, "kgrad_sym": evals, "kmv_dense": 0, "kmv_sym": 0, "kgrad_dense": 0}
+    if not (math.isfinite(final32) and final32 < initial and rel0 <= LOSS_TOL
+            and rel <= LOSS_TOL_CONVERGED and launches == expect):
+        raise AssertionError(f"cold Hutchinson fit: loss {final32} (initial {initial}, float64 "
+                             f"{final64}) or launches {launches} != {expect}")
+    return {"fit_s": fit_s, "stopped_by": info["stopped_by"], "iterations": iters,
+            "evals": evals, "s_per_eval": fit_s / evals, "peak_gb": peak_gb,
+            "launches": launches, "initial_loss": initial, "initial_loss64": initial64,
+            "initial_rel_err": rel0, "final_loss32": final32, "final_loss64": final64,
+            "loss_rel_err": rel, "log_prior_abs": prior, "l_star": l_star,
+            "final_minus_l_star": final32 - l_star, "in_tol_band": final32 <= l_star + tol_band,
+            "in_bench_band": final32 <= l_star + bench_band}
+
+
+def phase_cold_cg():
+    """The cold exact fit's CG engine at N = 65,536 (training_set, mode 0),
+    where "auto" takes CG: rank-128 preconditioner, 256 iterations in
+    16-iteration segments, 127 probes, residual gate 0.1, per-column
+    tolerance 0.02. First, at the initial parameters: the segmented step with
+    the early exit against the same step with early_exit=False, bit for bit
+    in loss and gradients; and the frozen carry a fixed point (the segments
+    the early exit skips, run on the carry, change no output finish reads).
+    Then fit_exact with max_iter=COLD_CG_ITERS: segments per evaluation,
+    gate aborts, s per evaluation, B3 calls (16 per segment), B5 calls (one
+    per evaluation), peak device memory under CG_PEAK_GB; and one evaluation
+    at the fitted parameters, whole and piece by piece."""
+    import logging
+
+    import torch
+
+    from gpras_tpu_torch.fit.optimizers import _apply_floors
+    from gpras_tpu_torch.gp import coldfit, exact, exact_cg
+    from gpras_tpu_torch.ops import fused_gram
+
+    x, y, _ = training_set(N_COLD)
+    x_t = torch.as_tensor(x, device=DEVICE)
+    y0 = torch.as_tensor(y[:, 0], device=DEVICE).contiguous()
+    opts = dict(probes=R_COLD - 1, max_iters=256, seg_iters=16, precond_rank=128,
+                residual_gate=0.1, tol=0.02)
+    p0 = exact.init_params("Matern52", x_t, noise_variance=0.1)
+    draws = exact_cg.precond_probes(N_COLD, 128, R_COLD - 1, device=DEVICE)
+    step = exact_cg.make_cg_step_chunked("Matern52", **opts)
+    full = exact_cg.make_cg_step_chunked("Matern52", early_exit=False, gate_abort=False, **opts)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss_e, grads_e = step(p0, x_t, y0, draws)
+    torch.cuda.synchronize()
+    early_s = time.perf_counter() - t0
+    early_b3 = fused_gram.kmv_sym.launches
+    early_segments = step.last_segments
+    loss_f, grads_f = full(p0, x_t, y0, draws)
+    same = bool(torch.equal(loss_e, loss_f)) and all(torch.equal(grads_e[k], grads_f[k])
+                                                      for k in grads_e)
+    # the invariant, on the carry itself: segments until every column is
+    # frozen, then the rest of the budget
+    with torch.no_grad():
+        noise = exact_cg._noise(p0, torch.float32)
+        z, pinv, _ = exact_cg._probe_matrix("Matern52", p0, x_t, draws, noise, 128)
+        b = torch.cat([y0[:, None], z], dim=1)
+        carry, _, stop2 = exact_cg._mbcg_init(b, 256, 0.02, pinv)
+
+        def mv(v):
+            return exact_cg.kmv("Matern52", p0, x_t, v, noise)
+
+        i0 = 0
+        while i0 < 256 and not bool(carry[6].all()):
+            carry = exact_cg._mbcg_run(mv, carry, i0, i0 + 16, stop2, pinv)
+            i0 += 16
+        frozen = tuple(t.clone() for t in carry)
+        carry = exact_cg._mbcg_run(mv, carry, i0, 256, stop2, pinv)
+        fixed = all(torch.equal(carry[j], frozen[j]) for j in (0, 2, 3, 4, 5, 6))
+        del carry, frozen, z, b
+    log(f"[cold-cg] N={N_COLD} at the initial parameters: the step stopped after "
+        f"{early_segments} of 16 segments ({early_b3} B3 calls, {early_s:.3f} s), loss "
+        f"{float(loss_e):.4f}; equal bit for bit to the full budget's loss and gradients: {same}; "
+        f"all columns frozen after {i0 // 16} segments, and the {(256 - i0) // 16} segments "
+        f"after change no output finish reads: {fixed}")
+    if not (same and fixed and early_b3 == 16 * early_segments):
+        raise AssertionError("cold CG: the early exit is not the full budget's result")
+
+    aborts = []
+
+    class Aborts(logging.Handler):
+        def emit(self, record):
+            aborts.append(record.getMessage())
+
+    handler = Aborts(logging.INFO)
+    cg_log = logging.getLogger(exact_cg.__name__)
+    cg_log.addHandler(handler)
+    cg_log.setLevel(logging.INFO)
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        params, info = coldfit.fit_exact("Matern52", x_t, y0, max_iter=COLD_CG_ITERS)
+    finally:
+        cg_log.removeHandler(handler)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    segments = info["segments"]
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    iters = int(info["iterations"])
+    log(f"[cold-cg] fit_exact at N={N_COLD}, mode 0, max_iter {COLD_CG_ITERS}: engine "
+        f"{info['engine']}, stopped_by {info['stopped_by']} after {iters} iterations, "
+        f"{info['evals']} evaluations in {fit_s:.3f} s ({fit_s / info['evals']:.3f} s per "
+        f"evaluation); segments per evaluation {segments}; gate aborts {len(aborts)}; losses "
+        f"{[f'{v:.3f}' for v in info['losses'][:iters].tolist()]}; launches {launches} (B3 = 16 x "
+        f"{sum(segments)} segments = {16 * sum(segments)}); peak device memory {peak_gb:.3f} GB")
+    for msg in aborts:
+        log(f"[cold-cg]   {msg}")
+
+    # one evaluation at the fitted parameters, whole (host clock) and piece
+    # by piece (CUDA events, each alone), at the segments it ran
+    p = _apply_floors(params, {"log_noise_variance": math.log(1e-3)})
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(p, x_t, y0, draws)
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+    iters_run = 16 * step.last_segments
+    noise = exact_cg._noise(p, torch.float32)
+    l_pc = exact_cg.pivoted_cholesky("Matern52", p, x_t, 128)
+    pinv, _ = exact_cg.make_woodbury_pinv(l_pc, noise)
+    gen = torch.Generator().manual_seed(2)
+    b = torch.randn(N_COLD, R_COLD, generator=gen).to(DEVICE)
+    w, v = (torch.randn(N_COLD, R_COLD - 1, generator=gen).to(DEVICE) for _ in range(2))
+    coeffs = torch.rand((256, R_COLD - 1), generator=gen).to(DEVICE) + 0.1
+    parts = {
+        "pivoted Cholesky (rank 128)": cuda_ms(
+            lambda: exact_cg.pivoted_cholesky("Matern52", p, x_t, 128)),
+        f"{iters_run} x B3 kmv_sym (R = {R_COLD})": iters_run * cuda_ms(
+            lambda: fused_gram.kmv_sym("Matern52", p, x_t, b, noise=noise)),
+        f"{iters_run + 1} x Woodbury P^-1": (iters_run + 1) * cuda_ms(lambda: pinv(b)),
+        f"SLQ eigh ({R_COLD - 1} x 256^2)": cuda_ms(
+            lambda: exact_cg._slq_terms(coeffs, coeffs, coeffs[0])),
+        f"B5 kgrad_sym (m = {R_COLD - 1})": cuda_ms(
+            lambda: fused_gram.kgrad_sym("Matern52", p, x_t, w, v, b[:, 0].contiguous(), 1.0,
+                                         1.0 / (R_COLD - 1))),
+    }
+    rest_ms = one_s * 1e3 - sum(parts.values())
+    log(f"[cold-cg] one evaluation at the fitted parameters ({step.last_segments} segments, host "
+        f"clock): {one_s * 1e3:.1f} ms; " + ", ".join(f"{k} {val:.2f} ms" for k, val in parts.items())
+        + f"; the rest (mbcg's vector updates, the host's segment reads) {rest_ms:.1f} ms")
+    del l_pc, b, w, v
+    torch.cuda.empty_cache()
+    finite = [v for v in info["losses"][:iters].tolist() if math.isfinite(v)]
+    if not (info["engine"] == "cg_hostls" and len(segments) == info["evals"]
+            and launches["kmv_sym"] == 16 * sum(segments)
+            and launches["kgrad_sym"] == info["evals"] and launches["gram"] == 0
+            and peak_gb <= CG_PEAK_GB and finite
+            and all(bool(torch.isfinite(v).all()) for v in params.values())):
+        raise AssertionError(f"cold CG fit: launches {launches}, segments {segments}, peak "
+                             f"{peak_gb} GB, losses {info['losses'][:iters].tolist()}")
+    return {"early_exit_segments": early_segments, "early_exit_s": early_s,
+            "bit_identical": same, "frozen_fixed_point": fixed, "fit_s": fit_s,
+            "stopped_by": info["stopped_by"], "iterations": iters, "evals": info["evals"],
+            "segments": segments, "s_per_eval": fit_s / info["evals"],
+            "gate_aborts": len(aborts),
+            "launches": launches, "peak_gb": peak_gb,
+            "losses": info["losses"][:iters].tolist(),
+            "eval_at_fit": {"segments": step.last_segments, "ms": one_s * 1e3,
+                            "parts_ms": parts, "rest_ms": rest_ms}}
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the GPU", file=sys.stderr)
         return 2
+    wall0 = time.perf_counter()
     phase_device()
     phase_build()
     report, fp32_bounds = phase_kernels()
@@ -1117,6 +1555,12 @@ def main() -> int:
     cg_checks = phase_cg_checks()
     torch.cuda.empty_cache()
     cg_launches, cg_fit = phase_cg_fit()
+    torch.cuda.empty_cache()
+    sgpr_run = phase_sgpr(out)
+    torch.cuda.empty_cache()
+    cold_cg = phase_cold_cg()
+    torch.cuda.empty_cache()
+    cold_hutch = phase_cold_hutchinson(x, y)
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -1155,14 +1599,20 @@ def main() -> int:
                                               in report[name].items()}})
         if name in ("kmv_sym", "kgrad_sym"):  # wrapper calls in phase 9's CG fit
             kernels[-1]["launches_cg_training"] = cg_launches[name]
+        # wrapper calls in the cold fits, phase 11 (Hutchinson) and 12 (CG)
+        kernels[-1]["launches_cold_hutchinson"] = cold_hutch["launches"][name]
+        kernels[-1]["launches_cold_cg"] = cold_cg["launches"][name]
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
     log(json.dumps({"cg_training": {"checks_n49152": cg_checks, "fit_n131072": cg_fit}}))
+    log(json.dumps({"sgpr": sgpr_run}))
+    log(json.dumps({"cold_fit": {"hutchinson_n49152": cold_hutch, "cg_n65536": cold_cg}}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))
     log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"wall_s": time.perf_counter() - wall0}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}), flush=True)

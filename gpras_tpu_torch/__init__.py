@@ -6,11 +6,13 @@ path (``gpras_tpu/gp/exact_cg.py`` -> ``gpras_tpu_torch/gp/exact_cg.py``).
 Plain tensor code is PyTorch; each Pallas kernel of the reference becomes a
 CUDA C++ kernel written for Hopper (``csrc/``), built with nvcc at first use.
 
-Ported so far: the exact-GP path — training (``GPRAS.fit``: the dense and
-Hutchinson engines, Adam, the warm-start protocol) and serving (checkpoint
-format, kernel zoo, dense and matrix-free batched-CG posteriors, EOF
-preprocessing and the bucketed ``PosteriorPredictor``). The CG training
-loss, the other optimizers and the sparse backends are still to come
+Ported so far: the exact GP — training (``GPRAS.fit``: the dense,
+Hutchinson and CG engines, the warm-start protocol; the cold fit
+``gp/coldfit.fit_exact``) and serving (checkpoint format, kernel zoo, dense
+and matrix-free batched-CG posteriors, EOF preprocessing and the bucketed
+``PosteriorPredictor``); SGPR, ``GPRAS``'s default backend, with k-means
+inducing points; and the whole optimizer zoo (``fit/optimizers.FITTERS``).
+SVGP, the metrics, the pipeline and the distributed layer are still to come
 (ROADMAP.md, queue A). Entry points run on the card (``device="cuda"``)
 unless the caller asks for the CPU.
 

@@ -21,6 +21,11 @@ Port of ``gpras_tpu/gp/exact_cg.py`` (GPyTorch's BBMM engine, Gardner et al.
   columns' Lanczos coefficients (``_slq_logdet_from_coeffs``), and the
   backward contracts the rank-(m + 1) cotangent with dK/dtheta without a
   Gram (``fused_gram.kgrad``: kernel B5, or B4 below 3,585 points).
+- ``make_cg_step_chunked`` / ``gate_abort_decision``: the cold fit's
+  evaluation (``gp/coldfit.py``): the same loss and gradient with mbcg run
+  in segments, between which the host stops once every column has converged
+  (the early exit, identical to running every segment) or once the
+  residual gate's verdict is decided (the gate abort).
 - ``slq_logdet_rr``: the Russian-roulette (randomly truncated, unbiased)
   SLQ log-determinant.
 
@@ -40,6 +45,7 @@ loops.
 
 from __future__ import annotations
 
+import logging
 import math
 from collections.abc import Callable
 
@@ -52,6 +58,8 @@ from gpras_tpu_torch.ops import linalg
 from gpras_tpu_torch.ops.block_cholesky import fit_block as _fit_panel
 
 Tensor = torch.Tensor
+
+_log = logging.getLogger(__name__)
 
 #: below this many training points the plain panel loop is used everywhere
 FUSED_MIN_N = 2048
@@ -275,12 +283,15 @@ def _slq_logdet_from_coeffs(alphas: Tensor, betas: Tensor, b2: Tensor) -> Tensor
 
 
 def precond_probes(n: int, rank: int, probes: int = 16, dtype: torch.dtype = torch.float32,
-                   device: str | torch.device | None = None) -> tuple[Tensor, Tensor]:
-    """(u1 (rank, probes), u2 (n, probes)) standard normal draws from a
-    ``torch.Generator`` seeded 0, drawn on the CPU and then moved, so they are
-    the same on every device: the fixed probes of the preconditioned CG loss
-    (z = L u1 + sqrt(noise) u2 is formed from them at every evaluation)."""
-    gen = torch.Generator().manual_seed(0)
+                   device: str | torch.device | None = None,
+                   gen: torch.Generator | None = None) -> tuple[Tensor, Tensor]:
+    """(u1 (rank, probes), u2 (n, probes)) standard normal draws from ``gen``
+    (default: a ``torch.Generator`` seeded 0), drawn on the CPU and then
+    moved, so they are the same on every device: the fixed probes of the
+    preconditioned CG loss (z = L u1 + sqrt(noise) u2 is formed from them at
+    every evaluation)."""
+    if gen is None:
+        gen = torch.Generator().manual_seed(0)
     u1 = torch.randn((rank, probes), generator=gen, dtype=torch.float64)
     u2 = torch.randn((n, probes), generator=gen, dtype=torch.float64)
     return u1.to(dtype=dtype, device=device), u2.to(dtype=dtype, device=device)
@@ -403,6 +414,173 @@ def make_cg_training_loss(kernel: str, probes: int = 16, max_iters: int = 32, **
         return nlml(params, x, y, draws) - log_prior(params)
 
     return loss
+
+
+def gate_abort_decision(rel_hist: list[float], rel: float, segs_ran: int,
+                        n_segs: int, gate: float) -> bool:
+    """The segmented step's gate-abort rule, a pure host-side predicate.
+
+    Abort (True) only when both hold:
+    - the decay is near-stalled: the best per-segment improvement ratio seen
+      in this solve is >= 0.9 (a solve that once decayed faster may be mid
+      Ritz-value convergence and can accelerate again, so it is never
+      aborted);
+    - even projecting that best ratio over every remaining segment leaves
+      the final residual above 4x the gate.
+
+    CG's decay accelerates late (superlinearly as Ritz values converge), so
+    a solve with any sub-0.9 segment is left to run; a solve frozen by
+    convergence or breakdown is caught by the early exit, not by this rule.
+    """
+    if segs_ran < 4:
+        return False  # the projection needs history to mean anything
+    ratios = [rel_hist[i + 1] / rel_hist[i]
+              for i in range(len(rel_hist) - 1) if rel_hist[i] > 0]
+    r_best = min(1.0, min(ratios)) if ratios else 1.0
+    if r_best < 0.9:
+        return False  # decay not stalled: late acceleration is plausible
+    projected = rel * r_best ** (n_segs - segs_ran)
+    return projected > 4.0 * gate
+
+
+def _post(vals: Tensor):
+    """Start copying a small device tensor to the host without waiting:
+    (host tensor, event to wait on, or None on the CPU)."""
+    if not vals.is_cuda:
+        return vals, None
+    host = torch.empty(vals.shape, dtype=vals.dtype, pin_memory=True)
+    host.copy_(vals, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+    return host, event
+
+
+def _fetch(posted) -> list:
+    host, event = posted
+    if event is not None:
+        event.synchronize()
+    return host.tolist()
+
+
+def make_cg_step_chunked(kernel: str, probes: int = 127, max_iters: int = 24,
+                         seg_iters: int = 4, col_panel: int = 4096, tol: float = 1e-6,
+                         precond_rank: int = 0, residual_gate: float | None = None,
+                         early_exit: bool = True, gate_abort: bool = True,
+                         row_panel: int = 4096):
+    """Training-loss value and gradient of the CG engine, with the mbcg
+    iterations run as ``seg_iters``-iteration segments between which the
+    host may stop.
+
+    Returns ``step(params, x, y, draws) -> (loss, grads)``: ``draws`` as
+    ``make_cg_nlml`` takes them ((u1, u2) normal draws with
+    ``precond_rank`` > 0, forming z = L u1 + sqrt(noise) u2 ~ N(0, P);
+    Rademacher z otherwise). ``setup`` forms the probes, the preconditioner
+    and mbcg's initial carry at tolerance ``tol``; the segments run mbcg's
+    iterations [i0, i0 + seg_iters); ``finish`` reads the carry: quad + logdet
+    / 2 + N log(2 pi) / 2 - log prior (logdet = logdet P + SLQ over the probe
+    columns), +inf when any column's relative residual exceeds
+    ``residual_gate``, and the gradient from the rank-(m + 1) cotangent
+    (``_cotangent_grads``: B5, or B4 below 3,585 points, on the kernel
+    route) minus the log prior's.
+
+    ``residual_gate`` defines the solver-validity region: a linesearch on a
+    truncated CG + SLQ objective finds hyperparameter regions where the
+    unconverged estimator is biased far below the true NLML, and the gate
+    makes those regions rejected trials instead of false minima.
+
+    ``early_exit`` (default on): between segments the host reads whether
+    every column has converged to ``tol`` (or frozen on breakdown) and stops
+    running segments once they have. That is identical to running them: a
+    fully frozen carry is a fixed point of the mbcg iteration on every
+    output ``finish`` reads (alpha and beta are 0, so x, the residual, rz
+    and the coefficient rows stay as they are; only the unused search
+    direction moves).
+
+    ``gate_abort`` (default on; only with a ``residual_gate``): stop running
+    segments once the gate's outcome is decided (``gate_abort_decision``);
+    each abort is logged (module logger, INFO) with the residual, the gate
+    and the recent history. ``finish`` then gates the returned loss to +inf
+    on the current, still above-gate residuals, as the full budget would.
+
+    The host reads one (all frozen, largest relative residual) pair per
+    segment, lagging one segment behind: segment k + 1 is already queued
+    when segment k's pair is read, so the card does not wait on the read.
+    Stopping one segment late changes nothing (a frozen carry is a fixed
+    point; the abort's loss is +inf either way). ``step.last_segments`` is
+    the number of segments the last call ran (single-threaded diagnostic).
+    """
+    if max_iters % seg_iters != 0:
+        raise ValueError(f"seg_iters {seg_iters} must divide max_iters {max_iters}")
+    from gpras_tpu_torch.fit.optimizers import value_and_grad
+
+    inv_m = 1.0 / probes
+    n_segs = max_iters // seg_iters
+
+    def step(params: dict[str, Tensor], x: Tensor, y: Tensor, draws):
+        params = {k: v.detach() for k, v in params.items()}
+        with torch.no_grad():
+            # setup
+            n = x.shape[0]
+            noise = _noise(params, x.dtype)
+            z, pinv, logdet_p = _probe_matrix(kernel, params, x, draws, noise, precond_rank)
+            b = torch.cat([y[:, None], z], dim=1)
+            carry, rz0, stop2 = _mbcg_init(b, max_iters, tol, pinv)
+            b2 = torch.clamp_min(torch.sum(b * b, dim=0), 1e-30)
+
+            def mv(v: Tensor) -> Tensor:
+                return kmv(kernel, params, x, v, noise, row_panel)
+
+            # segments
+            ran = 0
+            rel_hist: list[float] = []
+            check = early_exit or (gate_abort and residual_gate is not None)
+            prev_probe = None
+            prev_ran = 0
+            for k, i0 in enumerate(range(0, max_iters, seg_iters)):
+                carry = _mbcg_run(mv, carry, i0, i0 + seg_iters, stop2, pinv)
+                ran = k + 1
+                if not check or ran >= n_segs:
+                    continue
+                res, done = carry[2], carry[6]
+                rel = torch.sqrt(torch.max(torch.sum(res * res, dim=0) / b2))
+                cur = _post(torch.stack([torch.all(done).to(rel.dtype), rel]))
+                stop = False
+                if prev_probe is not None:
+                    all_done, rel_v = _fetch(prev_probe)
+                    if early_exit and all_done:
+                        stop = True
+                    elif gate_abort and residual_gate is not None:
+                        rel_hist.append(rel_v)
+                        if gate_abort_decision(rel_hist, rel_v, prev_ran, n_segs,
+                                               residual_gate):
+                            _log.info("cg gate_abort at segment %d/%d: rel=%.3g gate=%.3g "
+                                      "history=%s", prev_ran, n_segs, rel_v, residual_gate,
+                                      ["%.3g" % r for r in rel_hist[-4:]])
+                            stop = True  # finish()'s gate fires on these residuals
+                if stop:
+                    break
+                prev_probe, prev_ran = cur, ran
+            step.last_segments = ran
+
+            # finish
+            sol, _, res, _, alphas, betas, _ = carry
+            alpha, w = sol[:, 0].contiguous(), sol[:, 1:].contiguous()
+            logdet = logdet_p + _slq_logdet_from_coeffs(alphas[:, 1:], betas[:, 1:], rz0[1:])
+            loss = 0.5 * torch.dot(y, alpha) + 0.5 * logdet + 0.5 * n * math.log(2.0 * math.pi) \
+                - log_prior(params)
+            if residual_gate is not None:
+                rel2 = torch.sum(res * res, dim=0) / b2
+                loss = torch.where(torch.max(rel2) > residual_gate * residual_gate,
+                                   torch.inf, loss)
+            v = (pinv(z) if precond_rank > 0 else z).contiguous()
+            grads = _cotangent_grads(kernel, params, x, alpha, w, v,
+                                     torch.ones((), dtype=x.dtype, device=x.device), inv_m,
+                                     col_panel)
+        _, prior_grads = value_and_grad(log_prior, params)
+        return loss, {k: grads[k] - prior_grads[k] for k in grads}
+
+    step.last_segments = 0
+    return step
 
 
 def rr_depth(u: float, q: float = 0.6, n_tail: int = 8) -> int:

@@ -42,10 +42,13 @@ Tensor = torch.Tensor
 
 
 def rademacher_probes(n: int, probes: int = 16, dtype: torch.dtype = torch.float32,
-                      device: str | torch.device | None = None) -> Tensor:
-    """(n, probes) Rademacher +-1 probes from a ``torch.Generator`` seeded 0:
-    one fixed probe set per problem size, so the objective is deterministic."""
-    gen = torch.Generator().manual_seed(0)
+                      device: str | torch.device | None = None,
+                      gen: torch.Generator | None = None) -> Tensor:
+    """(n, probes) Rademacher +-1 probes from ``gen`` (default: a
+    ``torch.Generator`` seeded 0), drawn on the CPU: one fixed probe set per
+    problem size, so the objective is deterministic."""
+    if gen is None:
+        gen = torch.Generator().manual_seed(0)
     bits = torch.randint(0, 2, (n, probes), generator=gen)
     return (2 * bits - 1).to(dtype=dtype, device=device)
 

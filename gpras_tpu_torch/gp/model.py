@@ -1,13 +1,20 @@
-"""GPRAS: the high-level multi-output GP model — the exact GP, fit and served.
+"""GPRAS: the high-level multi-output GP model — the SGPR and exact GPs, fit
+and served.
 
-Port of the exact branch of ``gpras_tpu/gp/model.py``: one latent GP per EOF
-mode, parameters batched along a leading mode axis, posterior factors cached
-once and reused by every ``predict``. The reference ``vmap``s (or
+Port of the SGPR and exact branches of ``gpras_tpu/gp/model.py``: one latent
+GP per EOF mode, parameters batched along a leading mode axis, posterior
+factors cached once and reused by every ``predict``. The reference ``vmap``s (or
 ``lax.map``s) over modes; here a Python loop walks them. Checkpoints are the
 reference's npz + JSON manifest (``utils/serialization.py``), so either
 package loads the other's.
 
-Training follows the reference's engine ladder (``_loss_fn``): the dense
+SGPR (``model_type="sgpr"``, the default) trains the collapsed ELBO
+(``gp/sgpr.py``) with any optimizer of ``fit/optimizers.FITTERS`` from
+k-means or grid inducing points (``ops/kmeans.py``); its posterior cache is
+(L, LB, c) per mode. It runs plain PyTorch only: no hand-written kernel is
+on its path, as none is on the reference's.
+
+Exact training follows the reference's engine ladder (``_loss_fn``): the dense
 custom-gradient NLML up to ``SUPER_THRESHOLD`` points (the reference's
 "lean" panel-scan backward between 8,192 and 16,384 points maps to it), the
 Hutchinson stochastic-trace engine (``gp/exact_stochastic.py``, kernels
@@ -22,7 +29,7 @@ per mode up to ``SUPER_THRESHOLD`` training points, the matrix-free CG engine
 mode, no (N, N) buffer) above it or with ``exact_engine="cg"``.
 
 Everything runs on ``device``, the card unless the caller asks for the CPU.
-Not ported yet (ROADMAP.md, queue A): the ``sgpr`` / ``svgp`` backends (their
+Not ported yet (ROADMAP.md, queue A): the ``svgp`` backend (its
 construction raises).
 """
 
@@ -37,9 +44,10 @@ import torch
 
 from gpras_tpu_torch.fit import optimizers as fitters
 from gpras_tpu_torch.gp import exact as exact_gp
-from gpras_tpu_torch.gp import exact_cg, exact_stochastic, warmstart
+from gpras_tpu_torch.gp import exact_cg, exact_stochastic, sgpr, warmstart
 from gpras_tpu_torch.gp.exact_cg import cg_posterior_alpha, cg_predict, pivoted_cholesky
 from gpras_tpu_torch.ops import kernels as K
+from gpras_tpu_torch.ops import kmeans as km
 from gpras_tpu_torch.ops import linalg
 from gpras_tpu_torch.utils.profiling import log_fit_losses
 from gpras_tpu_torch.utils.serialization import load_artifact, save_artifact
@@ -48,6 +56,26 @@ Tensor = torch.Tensor
 
 KernelType = K.KernelName
 ModelBackendType = Literal["sgpr", "svgp", "exact"]
+
+
+def _sgpr_posterior_cache(kernel: str, params: dict[str, Tensor], x: Tensor, y: Tensor):
+    """Per-mode cached factors for repeated prediction: (L, LB, c)."""
+    sigma, _, l, a, lb = sgpr._common(kernel, params, x)
+    c = linalg.solve_triangular(lb, a @ y[:, None], lower=True)[:, 0] / sigma
+    return l, lb, c
+
+
+def _sgpr_predict_from_cache(kernel: str, params: dict[str, Tensor],
+                             cache: tuple[Tensor, Tensor, Tensor], x_test: Tensor):
+    l, lb, c = cache
+    kus = K.gram(kernel, params, params["z"], x_test)
+    tmp1 = linalg.solve_triangular(l, kus, lower=True)
+    tmp2 = linalg.solve_triangular(lb, tmp1, lower=True)
+    mean = tmp2.T @ c
+    var = K.kdiag(kernel, params, x_test) - torch.sum(tmp1 * tmp1, dim=0) + \
+        torch.sum(tmp2 * tmp2, dim=0)
+    var = torch.clamp_min(var, 0.0) + torch.exp(params["log_noise_variance"])
+    return mean, var
 
 
 def _exact_posterior_cache(kernel: str, params: dict[str, Tensor], x: Tensor, y: Tensor):
@@ -77,7 +105,8 @@ def _torch_dtype(dtype: Any) -> torch.dtype:
 
 
 class GPRAS:
-    """Multi-output GP for HEC-RAS upskilling/emulation — the exact GP."""
+    """Multi-output GP for HEC-RAS upskilling/emulation (reference
+    gpras/gpr.py:217): SGPR or the exact GP."""
 
     #: thresholds of the reference's exact-engine ladder, kept for parity
     #: (sized there for a 16 GB TPU; re-deriving them for an 80 GB card is a
@@ -90,19 +119,20 @@ class GPRAS:
     def __init__(self, kernel: KernelType, model_type: ModelBackendType = "sgpr",
                  dtype: Any = torch.float32, exact_engine: str = "auto",
                  device: str | torch.device = "cuda") -> None:
-        """``exact_engine`` picks the training loss ("auto" scales with N:
-        dense, then Hutchinson above 16,384 points, then the matrix-free CG
-        engine above 55,000; "dense", "lean" (= dense here), "hutchinson",
-        "cg"). For serving, "cg" forces the matrix-free posterior at any N."""
+        """``exact_engine`` picks the exact GP's training loss ("auto" scales
+        with N: dense, then Hutchinson above 16,384 points, then the
+        matrix-free CG engine above 55,000; "dense", "lean" (= dense here),
+        "hutchinson", "cg"). For serving, "cg" forces the matrix-free
+        posterior at any N. Ignored by SGPR."""
         if kernel not in K.KERNEL_NAMES:
             raise ValueError(f"Unknown kernel {kernel!r}")
         if model_type not in ("sgpr", "svgp", "exact"):
             raise ValueError(f"Unknown model_type {model_type!r}; "
                              "expected 'sgpr', 'svgp' or 'exact'")
-        if model_type != "exact":
+        if model_type == "svgp":
             raise NotImplementedError(
-                f"model_type={model_type!r} is not ported yet (ROADMAP.md queue A: "
-                "A2 for sgpr, A5 for svgp); the port serves model_type='exact'")
+                "model_type='svgp' is not ported yet (ROADMAP.md item A5); the port "
+                "fits and serves model_type='sgpr' and 'exact'")
         if exact_engine not in ("auto", "dense", "lean", "hutchinson", "cg"):
             raise ValueError(f"Unknown exact_engine {exact_engine!r}")
         self.kernel_str: str = kernel
@@ -130,8 +160,12 @@ class GPRAS:
             warm_start_subsample: int = 0, mesh: Any = None, **opt_kwargs: Any) -> None:
         """Fit one latent GP per output column of ``y``, mode after mode.
 
-        The reference's signature and defaults; ``n_inducing`` and
-        ``inducing_initializer`` are ignored by the exact backend.
+        The reference's signature and defaults. SGPR needs ``n_inducing`` > 0
+        inducing points, placed by ``inducing_initializer`` ("kmeans":
+        k-means centers from a generator seeded 0; "grid"); the exact
+        backend ignores both. ``optimization_method`` is any key of
+        ``fit/optimizers.FITTERS``; "stochastic" gets ``x`` for its
+        inducing-point restarts.
         ``initial_params`` starts from a mode-batched parameter dict (e.g. a
         loaded checkpoint's ``params``).
 
@@ -142,11 +176,15 @@ class GPRAS:
         full-N forward loss per mode (``gp/warmstart.py``; the per-mode caps
         and certifying losses land in ``self.warm_start_info``).
 
-        In float32, "adam" and "two-stage" default to a noise-variance floor
-        of 1e-4 and to non-finite step rejection, as in the reference.
+        For the exact model in float32, "adam" and "two-stage" default to a
+        noise-variance floor of 1e-4 and to non-finite step rejection, as in
+        the reference.
         ``self.fit_info`` holds the optimizer's per-mode ``iterations``,
         ``losses`` and ``loss``, stacked along the mode axis.
         """
+        if self.model_type == "sgpr" and n_inducing <= 0:
+            raise ValueError("sparse backends require n_inducing > 0 "
+                             "(use model_type='exact' for a dense GP)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-distributed fitting is not ported yet (ROADMAP.md item A6)")
@@ -175,8 +213,8 @@ class GPRAS:
 
         warm_ratio_cap = float(opt_kwargs.pop("warm_ratio_cap", warmstart.DEFAULT_RATIO_CAP))
         self.warm_start_info = None
-        if warm_start_subsample > 0 and initial_params is None \
-                and n >= 2 * warm_start_subsample:
+        if warm_start_subsample > 0 and self.model_type == "exact" \
+                and initial_params is None and n >= 2 * warm_start_subsample:
             # ceil stride keeps the warm stage at <= subsample points
             stride = -(-n // warm_start_subsample)
             warm = GPRAS(self.kernel_str, model_type="exact", dtype=self.dtype,
@@ -201,10 +239,13 @@ class GPRAS:
         else:
             # the same init for every mode (leading axis = mode)
             batched0 = {k: v.expand((p_modes,) + v.shape)
-                        for k, v in exact_gp.init_params(self.kernel_str, self.x).items()}
+                        for k, v in self._init_params(inducing_initializer).items()}
 
         fitter = fitters.FITTERS[optimization_method]
-        if self.dtype == torch.float32 and optimization_method in ("adam", "two-stage"):
+        if optimization_method == "stochastic":
+            opt_kwargs.setdefault("x", self.x)
+        if self.model_type == "exact" and self.dtype == torch.float32 \
+                and optimization_method in ("adam", "two-stage"):
             # float32 guards (overridable): a noise floor and non-finite step
             # rejection; without them a large-N exact fit NaNs once Adam
             # overshoots what the factorization can represent
@@ -222,7 +263,9 @@ class GPRAS:
         self.fit_info = {k: torch.stack([torch.as_tensor(info[k]) for info in infos])
                          for k in infos[0]}
         self._cache = None
-        log_fit_losses(self.fit_info, name=f"GPRAS[{self.kernel_str}/{self.model_type}]")
+        if "evolution" not in optimization_method:
+            # DE's "losses" are the final population's energies, not a history
+            log_fit_losses(self.fit_info, name=f"GPRAS[{self.kernel_str}/{self.model_type}]")
 
     def _engine(self) -> str:
         """The training engine for the current N (the reference's ladder)."""
@@ -242,7 +285,10 @@ class GPRAS:
         return engine
 
     def _loss_fn(self, params: dict[str, Tensor], y_i: Tensor) -> Tensor:
-        """Mode ``y_i``'s training loss (NLML minus log prior) at ``params``."""
+        """Mode ``y_i``'s training loss at ``params``: -(ELBO + log prior)
+        for SGPR, NLML minus log prior for the exact GP."""
+        if self.model_type == "sgpr":
+            return sgpr.training_loss(self.kernel_str, params, self.x, y_i)
         engine = self._engine()
         if engine == "cg":
             if self._cg_loss is None:
@@ -266,6 +312,21 @@ class GPRAS:
             return self._hutch_loss(params, self.x, y_i, self._probes)
         return exact_gp.training_loss(self.kernel_str, params, self.x, y_i)
 
+    def _init_params(self, inducing_initializer: str) -> dict[str, Tensor]:
+        if self.model_type == "exact":
+            return exact_gp.init_params(self.kernel_str, self.x)
+        z = self._create_inducing(self.x, self.n_inducing, inducing_initializer)
+        return sgpr.init_params(self.kernel_str, self.x, z)
+
+    @staticmethod
+    def _create_inducing(x: Tensor, n_inducing: int, method: str) -> Tensor:
+        """k-means cluster centers or the per-feature grid (gpras/gpr.py:310-320)."""
+        if method == "kmeans":
+            return km.kmeans_inducing(x, n_inducing, seed=0)
+        if method == "grid":
+            return km.grid_inducing(x, n_inducing)
+        raise ValueError(f"Unknown inducing initializer {method!r}")
+
     # --------------------------------------------------------------- prediction
 
     @property
@@ -281,7 +342,10 @@ class GPRAS:
         if self.params is None:
             raise RuntimeError("from_file() must run before predict()")
         modes = [self._mode_params(i) for i in range(self._n_modes)]
-        if self._matrix_free:
+        if self.model_type == "sgpr":
+            self._cache = tuple(_sgpr_posterior_cache(self.kernel_str, p, self.x, self.y[:, i])
+                                for i, p in enumerate(modes))
+        elif self._matrix_free:
             # alpha (batched CG solve) plus the per-mode rank-64 pivoted-
             # Cholesky preconditioner, built once per model, not per predict
             alphas = [cg_posterior_alpha(self.kernel_str, p, self.x, self.y[:, i],
@@ -300,7 +364,9 @@ class GPRAS:
         means, variances = [], []
         for i in range(self._n_modes):
             p = self._mode_params(i)
-            if self._matrix_free:
+            if self.model_type == "sgpr":
+                mean, var = _sgpr_predict_from_cache(self.kernel_str, p, self._cache[i], xq)
+            elif self._matrix_free:
                 mean, var = cg_predict(self.kernel_str, p, self.x, self.y[:, i], xq,
                                        alpha=self._cache[0][i], l_pc=self._cache[1][i])
             else:

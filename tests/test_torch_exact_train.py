@@ -234,9 +234,12 @@ def test_adam_matches_optax_step_for_step(case):
 
 
 def test_unported_fitters_raise_naming_the_roadmap():
+    # every fitter is ported now (ROADMAP.md A2, tests/test_torch_optimizer_zoo.py):
+    # the keys are the reference's and none raises any more
     assert sorted(TO.FITTERS) == sorted(JO.FITTERS)
-    with pytest.raises(NotImplementedError, match="A2"):
-        TO.FITTERS["L-BFGS-B"](lambda p: p["a"], {"a": torch.zeros(())})
+    p, _ = TO.FITTERS["L-BFGS-B"](lambda p: (p["a"] - 1.0) ** 2,
+                                  {"a": torch.zeros((), dtype=torch.float64)})
+    assert abs(float(p["a"]) - 1.0) < 1e-6
 
 
 # -------------------------------------------------------------- warm start

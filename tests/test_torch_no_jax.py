@@ -2,7 +2,9 @@
 
 A fresh interpreter imports gpras_tpu_torch, serves a tiny exact-GP
 checkpoint on the CPU through every module of the serving slice, fits tiny
-models through the dense and the Hutchinson engines, and checks that neither
+models through the dense and the Hutchinson engines, fits and serves a tiny
+SGPR model, runs the cold exact fit on both of its engines, and checks that
+neither
 ``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
 which runs on that machine too, imports neither."""
 
@@ -47,6 +49,16 @@ for engine in ("dense", "hutchinson"):
     fitted.fit(x, y, optimization_method="adam", max_iter=3, learning_rate=0.05)
     assert all(torch.isfinite(v).all() for v in fitted.params.values())
     assert int(fitted.fit_info["iterations"][0]) == 3
+sparse = GPRAS("Matern52", dtype=torch.float64, device="cpu")
+sparse.fit(x, y, n_inducing=8, max_iter=3)
+sparse.to_file(out / "sgpr.npz")
+mean, var = PosteriorPredictor(out / "sgpr.npz", buckets=(8,), device="cpu").predict_modes(x[:5])
+assert mean.shape == var.shape == (5, 2) and np.isfinite(mean).all()
+from gpras_tpu_torch.gp.coldfit import fit_exact
+for engine in ("hutchinson", "cg"):
+    p, info = fit_exact("Matern52", torch.as_tensor(x), torch.as_tensor(y[:, 0]), engine=engine,
+                        max_iter=2, probes=8, cg_iters=16, seg_iters=4, precond_rank=8)
+    assert info["iterations"] >= 1 and np.isfinite(float(info["loss"]))
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpras_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")

@@ -158,8 +158,9 @@ def test_port_refuses_what_it_does_not_serve(artifacts):
     # mesh-distributed fit is still refused
     with pytest.raises(NotImplementedError, match="A6"):
         model.fit(np.zeros((4, D)), np.zeros((4, P)), mesh="auto")
-    with pytest.raises(NotImplementedError, match="sgpr"):
-        TGPRAS("RBF", model_type="sgpr", device="cpu")
+    # sgpr is ported (tests/test_torch_sgpr.py); svgp is still refused
+    with pytest.raises(NotImplementedError, match="A5"):
+        TGPRAS("RBF", model_type="svgp", device="cpu")
 
 
 @pytest.mark.parametrize("active, noise", [((1.0, 0.6, 0.35), 0.01), ((3.5, 3.0, 3.0), 0.1)],
