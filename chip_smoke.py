@@ -4,9 +4,11 @@
 Drives the exact-GP serving path and the exact-GP training path once each at
 full width (N = 49,152 training points, D = 8 inputs, Matern52, P = 4 EOF
 modes, 49,152-cell fields), the matrix-free CG training path at
-N = 131,072, the SGPR backend (fit and serve, N = 49,152) and the cold exact
-fit (Hutchinson at N = 49,152, CG at N = 65,536), through the entry points a
-user calls, and checks every CUDA kernel on those paths:
+N = 131,072, the SGPR backend (fit and serve, N = 49,152), the cold exact
+fit (Hutchinson at N = 49,152, CG at N = 65,536), the SVGP backend (fit and
+serve at N = 49,152; the archive-scale protocol at N = 2^20), the accuracy
+north stars and the metric suite, through the entry points a user calls,
+and checks every CUDA kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
@@ -65,6 +67,23 @@ user calls, and checks every CUDA kernel on those paths:
    equal bit for bit to the full 256-iteration budget at the initial
    parameters, and fit_exact with max_iter = 2: segments, gate aborts and
    seconds per evaluation, B3 and B5 calls, peak device memory
+13. SVGP: GPRAS("Matern52", model_type="svgp") fit on phase 5's data (300
+   k-means inducing points, batches of 4,096, 10 epochs, natural-gradient
+   steps at 0.5), its checkpoint served by PosteriorPredictor to phase 3's
+   requests; B1-B5 launch zero times; the fp32 full-N bound against float64
+   in units of eps32 x the sum of its terms, the served posterior against
+   float64 svgp.predict; 20 steps traced for the device's idle share
+14. SVGP at archive scale (examples/torch_svgp_accuracy.py, the protocol of
+   benchmarks/svgp_accuracy.py): N = 2^20, M = 512, B = 8,192, 8 epochs,
+   against the collapsed-SGPR gold; RMSE and coverage limits; one epoch
+   streamed from pinned host memory equal to the device-resident one; a
+   breakdown of one step and the idle share over 20
+15. the accuracy north stars (gpras_tpu_torch.accuracy): run_path f32 and
+   f64 at DEFAULT_CONFIG, run_exact_path f32 and f64 at EXACT_CONFIG
+   (N = 32,768: B1 and B5 once per full-N step, B2 and B3 in the
+   prediction), held to the JAX package's recorded accuracy
+16. compute_event_metrics on phase 15's predicted depth fields and
+   HmsPreProcessor on a seeded forcing frame, on the card against the CPU
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -120,6 +139,34 @@ LOSS_TOL_CONVERGED = 1e-4
 FP32_FLOPS = 67e12
 TF32_FLOPS = 495e12
 HBM_BYTES_S = 3.35e12
+# phase 13, SVGP through GPRAS on phase 5's data
+SVGP_INDUCING = 300
+SVGP_BATCH = 4096
+SVGP_EPOCHS = 10
+SVGP_NATGRAD = 0.5
+SVGP_LOSS_ULPS = 64  # the fp32 bound's limit, in eps32 x sum |terms| (as phase 10)
+SVGP_TRACE_STEPS = 20
+# phase 14, benchmarks/svgp_accuracy.py's protocol at archive scale, and its
+# limits: RMSE of y within 1.3 x the noise (0.05), coverage of y at 2 sigma,
+# RMSE against the gold (the JAX package recorded 0.05721, 0.9838, 0.04629 on
+# its own draws, benchmarks/svgp_accuracy_reference.json); the streamed
+# epoch's parameters against the device-resident one's (bit for bit expected)
+ARCHIVE = {"n": 1 << 20, "m": 512, "b": 8192, "d": 8, "n_test": 8192, "n_sub": 65536,
+           "epochs": 8, "hyper_steps": 300, "chunk": 16}
+ARCHIVE_RMSE_Y = 0.065
+ARCHIVE_COVERAGE = 0.95
+ARCHIVE_VS_GOLD = 0.06
+STREAM_RTOL = 1e-6
+# phase 15, limits from the JAX package's record (benchmarks/accuracy_reference.json:
+# ratio 1.027, coverage 0.9957, exact vs f64 8e-6, exact ratio 1.0)
+ACC_RATIO = 1.10
+ACC_COVERAGE = 0.95
+EXACT_VS_F64 = 1e-4
+EXACT_RATIO = 1.01
+N_ACC = 32_768  # accuracy.EXACT_CONFIG["n_train"]
+# phase 16: the card's float64 metrics and HmsPreProcessor against the CPU's
+METRIC_RTOL = 1e-10
+HMS_RTOL = 1e-8
 
 
 def log(msg: str) -> None:
@@ -546,6 +593,51 @@ def phase_kernels():
           grids=lambda: fused_gram._kgrad_cuda(True, kernel, params, x, w, z, alpha, 1.3,
                                                1.0 / m))
     del params, x, v, w, z, alpha
+    torch.cuda.empty_cache()
+
+    # The exact accuracy path (phase 15), Matern52 at N = 32,768: B1 (the
+    # Hutchinson forward) and B5 at m = 16 Rademacher probes (its backward)
+    # in every full-N step; B2 for the posterior mean of 2,048 test points;
+    # B3 for the alpha solve (R = 1) and the variance solves (R = 256, the
+    # queries 256 at a time), beside the library call on a prebuilt Gram
+    params, x, _, _ = inputs(N_ACC, N_ACC, 1)
+    check("gram", kernel, f"{N_ACC}x{N_ACC} +noise",
+          lambda: fused_gram.gram(kernel, params, x, noise=noise),
+          lambda got: gram_error(kernel, f64(params), x.double(), None, 1e-2, got),
+          lambda: fused_gram.gram_plain(kernel, params, x, noise=noise),
+          gram_work(N_ACC, N_ACC),
+          grids=lambda: fused_gram._gram_cuda(kernel, params, x, None, noise))
+    w = torch.randn(N_ACC, M, generator=gen).to(dev)
+    z = (2 * torch.randint(0, 2, (N_ACC, M), generator=gen) - 1).float().to(dev)
+    alpha = torch.randn(N_ACC, generator=gen).to(dev)
+    check("kgrad_sym", kernel, f"N={N_ACC} m={M}",
+          lambda: fused_gram.kgrad_sym(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+          fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(), z.double(),
+                                 alpha.double(), 1.3, 1.0 / M),
+          lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+          kgrad_work(N_ACC, D, M),
+          grids=lambda: fused_gram._kgrad_cuda(True, kernel, params, x, w, z, alpha, 1.3,
+                                               1.0 / M))
+    del w, z, alpha
+    params, x1, x2, v = inputs(2048, N_ACC, 1)
+    check("kmv_dense", kernel, f"2048x{N_ACC} R=1",
+          lambda: fused_gram.kmv_dense(kernel, params, x1, v, x2=x2),
+          fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(), x2=x2.double()),
+          lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2),
+          kmv_work(2048, N_ACC, 1, False),
+          library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v),
+          grids=lambda: fused_gram._kmv_dense_cuda(kernel, params, x1, v, x2, None))
+    for r in (1, 256):
+        params, x, _, v = inputs(N_ACC, N_ACC, r)
+        plan = fused_gram.kmv_sym_plan(N_ACC, D, r, sms)
+        check("kmv_sym", kernel, f"{N_ACC}x{N_ACC} R={r}",
+              lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
+              fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
+              lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise),
+              kmv_work(N_ACC, N_ACC, r, True),
+              library=lambda: prebuilt_matmul(kernel, params, x, None, noise, v),
+              grids=lambda: fused_gram._kmv_sym_cuda(plan, kernel, params, x, v, noise)[:2])
+    del params, x, x1, x2, v
     torch.cuda.empty_cache()
 
     # Every kernel at D = 300 (the wide path: 128 coordinates a point staged,
@@ -1529,6 +1621,453 @@ def phase_cold_cg():
                             "parts_ms": parts, "rest_ms": rest_ms}}
 
 
+def device_trace(fn):
+    """``fn`` once under torch.profiler: (host-clock ms of the traced run,
+    ms during which the device ran at least one recorded event, the number
+    of events). The idle share is 1 - busy / host ms; None when the
+    profiler recorded no device event."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type.name == "CUDA")
+    if not spans:
+        return wall_ms, None, 0
+    busy, end = 0.0, -math.inf
+    for a, b in spans:  # the union of the intervals, in us
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return wall_ms, busy / 1e3, len(spans)
+
+
+def svgp_step_breakdown(p, xc, yc, n_total: int, tag: str):
+    """One SVGP training step at ``p`` on the batches ``xc``, ``yc``
+    (n_batches, B, .): its pieces (CUDA events around one call each: the
+    natural-gradient step, the loss and its gradient, Adam's update), the
+    host's reads of cholesky_ex's status a step (one per safe_cholesky
+    call), the host-clock time of the batches as one chunk untraced, and the
+    same chunk under torch.profiler for the device's idle share."""
+    import torch
+
+    from gpras_tpu_torch.fit.optimizers import _adam_update, value_and_grad
+    from gpras_tpu_torch.gp import svgp
+    from gpras_tpu_torch.ops import linalg
+
+    xb, yb = xc[0], yc[0]
+
+    def loss_grad(q):
+        return value_and_grad(lambda r: svgp.training_loss("Matern52", r, xb, yb, n_total), q)
+
+    p_ng = svgp.natgrad_step("Matern52", p, xb, yb, n_total, lr=SVGP_NATGRAD)
+    _, g = loss_grad(p_ng)
+    state = svgp._adam_init(p)
+    parts = {"natgrad_step": cuda_ms(lambda: svgp.natgrad_step("Matern52", p, xb, yb, n_total,
+                                                               lr=SVGP_NATGRAD)),
+             "loss and gradient": cuda_ms(lambda: loss_grad(p_ng)),
+             "Adam update": cuda_ms(lambda: _adam_update(g, state, 0.01, svgp.ADAM_B1,
+                                                         svgp.ADAM_B2, svgp.ADAM_EPS))}
+    init, run_chunk = svgp.make_stream_fit("Matern52", learning_rate=0.01, natgrad=SVGP_NATGRAD)
+    run_chunk(p, init(p), xc[:2], yc[:2], n_total)  # warm-up
+    reads = [0]
+    safe_cholesky = linalg.safe_cholesky
+
+    def counted(*args, **kwargs):
+        reads[0] += 1
+        return safe_cholesky(*args, **kwargs)
+
+    linalg.safe_cholesky = counted
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_chunk(p, init(p), xc, yc, n_total)
+        torch.cuda.synchronize()
+        steps_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        linalg.safe_cholesky = safe_cholesky
+    steps = xc.shape[0]
+    traced_ms, busy_ms, events = device_trace(lambda: run_chunk(p, init(p), xc, yc, n_total))
+    idle = None if busy_ms is None else 1.0 - busy_ms / traced_ms
+    log(f"[{tag}] one step (B = {xb.shape[0]}, M = {p['z'].shape[0]}), pieces by CUDA events: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in parts.items())
+        + f"; {reads[0] / steps:.0f} host reads of a Cholesky status a step; {steps} steps "
+        f"untraced {steps_ms:.1f} ms ({steps_ms / steps:.3f} ms a step); traced {traced_ms:.1f} ms, "
+        f"the device busy {'not measured' if busy_ms is None else f'{busy_ms:.1f} ms'} over "
+        f"{events} device events: idle share "
+        f"{'not measured' if idle is None else f'{idle:.3f}'}")
+    return {"parts_ms": parts, "host_reads_per_step": reads[0] / steps, "steps": steps,
+            "untraced_ms_per_step": steps_ms / steps, "traced_ms": traced_ms,
+            "device_busy_ms": busy_ms, "device_events": events, "idle_share": idle}
+
+
+def svgp_bound_terms(p64, x64, y64) -> dict[str, float]:
+    """The magnitudes of the full-N SVGP bound's terms, in float64: the data
+    term's per-point pieces (which cancel: var_f = kdiag - |a|^2 +
+    |q_sqrt^T a|^2), the KL's and the log prior's. float32 rounds each at
+    ~eps32 of its size, so their sum scales the limit."""
+    import torch
+
+    from gpras_tpu_torch.gp import svgp
+    from gpras_tpu_torch.gp.priors import log_prior
+    from gpras_tpu_torch.ops import kernels as K
+
+    n = x64.shape[0]
+    a = svgp._whitened_projection("Matern52", p64, x64)
+    mean, _ = svgp._f_moments(p64, a, K.kdiag("Matern52", p64, x64))
+    q = svgp.q_sqrt_from_raw(p64["q_raw"])
+    qa = torch.einsum("pkm,kb->pmb", q, a)
+    s2 = float(torch.exp(p64["log_noise_variance"]))
+    return {"n log(2 pi s2) / 2": 0.5 * n * abs(math.log(2 * math.pi * s2)),
+            "|y - mean|^2 / 2s2": float(((y64 - mean[:, 0]) ** 2).sum()) / (2 * s2),
+            "kdiag / 2s2": float(K.kdiag("Matern52", p64, x64).sum()) / (2 * s2),
+            "|a|^2 / 2s2": float((a * a).sum()) / (2 * s2),
+            "|q_sqrt^T a|^2 / 2s2": float((qa * qa).sum()) / (2 * s2),
+            "KL": 0.5 * float((p64["q_mu"] ** 2).sum() + (q * q).sum() + q.shape[-1]
+                              + 2 * p64["q_raw"].diagonal(0, -2, -1).abs().sum()),
+            "log prior": abs(float(log_prior(p64)))}
+
+
+def phase_svgp(out: Path):
+    """SVGP through GPRAS on phase 5's 4-mode training set: 300 k-means
+    inducing points, batches of 4,096, 10 epochs, natural-gradient steps at
+    0.5 with Adam; saved and served by PosteriorPredictor with phase 3's
+    preprocessors and requests. SVGP runs no hand-written kernel: B1-B5
+    must launch zero times. Checks: mode 0's fp32 full-N bound (the
+    model's full-batch training loss) against float64 of the same formula,
+    within SVGP_LOSS_ULPS x eps32 x the sum of its term magnitudes; the
+    served mode-0 posterior of the first request against float64
+    svgp.predict of the same parameters, with phase 4's limits."""
+    import torch
+
+    from gpras_tpu_torch import GPRAS, PosteriorPredictor
+    from gpras_tpu_torch.gp import svgp
+
+    x, y, _ = training_set()
+    model = GPRAS("Matern52", model_type="svgp", device=DEVICE)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(x, y, n_inducing=SVGP_INDUCING, optimization_method="adam",
+              batch_size=SVGP_BATCH, epochs=SVGP_EPOCHS, natgrad=SVGP_NATGRAD)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    GPRAS._create_inducing(model.x, SVGP_INDUCING, "kmeans")  # the fit's k-means, again
+    torch.cuda.synchronize()
+    kmeans_s = time.perf_counter() - t0
+    steps = P * SVGP_EPOCHS * (N // SVGP_BATCH)
+    train_s = fit_s - kmeans_s
+    model.to_file(out / "svgp.npz")
+    requests = [synthetic_fields(np.random.default_rng(12 + i), n)[0]
+                for i, n in enumerate((17, 200))]
+    t0 = time.perf_counter()
+    pred = PosteriorPredictor(out / "svgp.npz", hf_preprocessor_path=out / "hf_pre.npz",
+                              lf_preprocessor_path=out / "lf_pre.npz", buckets=(64, 256),
+                              device=DEVICE)
+    torch.cuda.synchronize()
+    cache_s = time.perf_counter() - t0
+    latencies = []
+    for req in requests:
+        t0 = time.perf_counter()
+        field, var = pred.predict_field(req)
+        latencies.append(time.perf_counter() - t0)
+        if field.shape != req.shape or not (np.isfinite(field).all() and (var >= 0).all()):
+            raise AssertionError("SVGP request: wrong shape, non-finite field or negative variance")
+    launches = read_counters()
+    losses = model.fit_info["losses"]
+    log(f"[svgp] fit of {P} modes at N={N}, M={SVGP_INDUCING} (k-means {kmeans_s:.3f} s), "
+        f"B={SVGP_BATCH}, {SVGP_EPOCHS} epochs, natgrad {SVGP_NATGRAD}: {fit_s:.3f} s, "
+        f"{train_s / (P * SVGP_EPOCHS):.3f} s per epoch, {train_s / steps * 1e3:.2f} ms per step "
+        f"({steps} steps); epoch losses of mode 0 {[f'{v:.1f}' for v in losses[0].tolist()]}; "
+        f"cache build {cache_s:.3f} s; requests of 17 / 200 LF fields {latencies[0]:.3f} / "
+        f"{latencies[1]:.3f} s; kernel launches {launches}")
+    if any(launches.values()) or not bool(torch.isfinite(losses).all()):
+        raise AssertionError(f"SVGP launched a hand-written kernel ({launches}) or a loss is "
+                             "not finite")
+
+    # (a) the fp32 full-N bound against float64 of the same formula
+    p32 = {k: v[0] for k, v in model.params.items()}
+    p64 = {k: v.double() for k, v in p32.items()}
+    x64, y64 = model.x.double(), model.y[:, 0].double()
+    with torch.no_grad():
+        loss32 = float(model._loss_fn(p32, model.y[:, 0]))
+        loss64 = float(svgp.training_loss("Matern52", p64, x64, y64, N))
+        terms = svgp_bound_terms(p64, x64, y64)
+    unit = 2.0 ** -23 * sum(terms.values())
+    limit = SVGP_LOSS_ULPS * unit
+    loss_err = abs(loss32 - loss64)
+    log(f"[svgp-check] mode 0 full-N bound at the fitted parameters: float32 {loss32:.6f}, "
+        f"float64 {loss64:.6f}, error {loss_err:.4g} = {loss_err / unit:.3f} x eps32 x sum|terms| "
+        f"({unit:.4g}; limit {SVGP_LOSS_ULPS} x = {limit:.4g}); terms "
+        + ", ".join(f"{k} {v:.6g}" for k, v in terms.items())
+        + f"; reach: a dropped KL moves the loss by {terms['KL']:.4g} "
+        f"({'caught' if terms['KL'] > limit else 'NOT caught'})")
+
+    # (b) the served posterior of mode 0 against float64 svgp.predict
+    xq_np = pred.lf_pre.transform(requests[0])
+    mean, var = pred.predict_modes(xq_np)
+    with torch.no_grad():
+        want_mean, want_var = (t.cpu().numpy() for t in svgp.predict(
+            "Matern52", p64, torch.as_tensor(xq_np, dtype=torch.float64, device=x64.device)))
+    mean_err = float(np.abs(mean[:, 0] - want_mean).max())
+    var_err = float((np.abs(var[:, 0] - want_var) / want_var).max())
+    log(f"[svgp-check] served mode 0, {len(want_mean)} queries vs float64 svgp.predict: mean "
+        f"max abs err {mean_err:.3e} (limit {MEAN_TOL} * {np.abs(want_mean).max():.3e}), variance "
+        f"max rel err {var_err:.3e} (limit {VAR_TOL})")
+    if not (loss_err <= limit and mean_err <= MEAN_TOL * np.abs(want_mean).max()
+            and var_err <= VAR_TOL):
+        raise AssertionError("SVGP bound or served posterior disagrees with float64")
+
+    # 20 steps of the fit's step at the fitted parameters, traced (two
+    # epochs' batches: one epoch has 12)
+    gen = torch.Generator(device=DEVICE).manual_seed(13)
+    rows = SVGP_TRACE_STEPS * SVGP_BATCH
+    perm = torch.cat([torch.randperm(N, generator=gen, device=DEVICE)
+                      for _ in range(-(-rows // N))])[:rows]
+    xc = model.x[perm].reshape(SVGP_TRACE_STEPS, SVGP_BATCH, D)
+    yc = model.y[perm, :1].reshape(SVGP_TRACE_STEPS, SVGP_BATCH, 1)
+    step = svgp_step_breakdown(p32, xc, yc, N, "svgp-step")
+    return {"fit_s": fit_s, "kmeans_s": kmeans_s, "steps": steps,
+            "s_per_epoch": train_s / (P * SVGP_EPOCHS), "s_per_step": train_s / steps,
+            "cache_build_s": cache_s, "request_s": dict(zip(("17", "200"), latencies)),
+            "launches": launches, "epoch_losses": losses.tolist(), "loss32": loss32,
+            "loss64": loss64, "loss_err": loss_err, "loss_limit": limit,
+            "loss_err_in_units": loss_err / unit, "kl": terms["KL"], "mean_err": mean_err,
+            "var_err": var_err, "step": step}
+
+
+def phase_svgp_archive():
+    """examples/torch_svgp_accuracy.py's protocol (benchmarks/svgp_accuracy.py
+    in torch) at ARCHIVE: the gold, the 8-epoch SVGP fit, the accuracy
+    limits, one epoch streamed from pinned host memory against the same
+    epoch device-resident; then one step at the fitted parameters, piece by
+    piece, and 20 traced for the idle share. B1-B5 launch zero times."""
+    import importlib.util
+
+    import torch
+
+    spec = importlib.util.spec_from_file_location(
+        "torch_svgp_accuracy", ROOT / "examples" / "torch_svgp_accuracy.py")
+    protocol = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(protocol)
+    zero_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    rep = protocol.run(**ARCHIVE, device=DEVICE)
+    launches = read_counters()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    p_fit = rep.pop("params")
+    log(f"[svgp-archive] N={rep['n']} M={rep['m']} B={rep['b']} D={rep['d']}, {rep['epochs']} "
+        f"epochs: SVGP fit {rep['svgp_fit_s']:.3f} s ({rep['svgp_s_per_epoch']:.3f} s per epoch, "
+        f"{rep['svgp_s_per_step'] * 1e3:.2f} ms per step); gold {rep['gold_s']:.3f} s "
+        f"({rep['hyper_steps']} SGPR steps on {rep['n_sub']} points, optimal_q over N); peak "
+        f"device memory {peak_gb:.2f} GB; launches {launches}")
+    log(f"[svgp-archive] RMSE vs f: SVGP {rep['svgp_rmse_f']:.5f}, gold {rep['gold_rmse_f']:.5f}; "
+        f"vs y: SVGP {rep['svgp_rmse_y']:.5f} (limit {ARCHIVE_RMSE_Y}), gold "
+        f"{rep['gold_rmse_y']:.5f}; SVGP vs gold {rep['svgp_vs_gold_mean_rmse']:.5f} (limit "
+        f"{ARCHIVE_VS_GOLD}); 2-sigma coverage of y: SVGP {rep['svgp_coverage_2sd']:.4f} (limit "
+        f"{ARCHIVE_COVERAGE}), gold {rep['gold_coverage_2sd']:.4f}; noise sigma SVGP "
+        f"{rep['svgp_noise_sigma']:.5f}, gold {rep['gold_noise_sigma']:.5f} (true 0.05)")
+    log(f"[svgp-archive] one epoch device-resident {rep['device_epoch_s']:.3f} s "
+        f"({rep['device_points_per_s']:.0f} points/s); streamed from pinned host memory in "
+        f"chunks of {rep['stream_chunk_batches']} batches {rep['stream_epoch_s']:.3f} s "
+        f"({rep['stream_points_per_s']:.0f} points/s); parameters max relative difference "
+        f"{rep['stream_vs_device_max_rel_err']:.3e} (limit {STREAM_RTOL}), bit for bit: "
+        f"{rep['stream_bit_identical']}")
+    if not (rep["svgp_rmse_y"] <= ARCHIVE_RMSE_Y and rep["svgp_coverage_2sd"] >= ARCHIVE_COVERAGE
+            and rep["svgp_vs_gold_mean_rmse"] <= ARCHIVE_VS_GOLD
+            and rep["stream_vs_device_max_rel_err"] <= STREAM_RTOL and not any(launches.values())):
+        raise AssertionError("SVGP at archive scale missed a limit, the stream differs from the "
+                             f"device-resident epoch, or a kernel launched ({launches})")
+    x_h, _, y_h = protocol.make_data(ARCHIVE["n"], ARCHIVE["n_test"], ARCHIVE["d"], 0)
+    rows = SVGP_TRACE_STEPS * ARCHIVE["b"]  # iid draws: any rows are a uniform batch
+    xc = torch.as_tensor(x_h[:rows], device=DEVICE).reshape(SVGP_TRACE_STEPS, ARCHIVE["b"], -1)
+    yc = torch.as_tensor(y_h[:rows], device=DEVICE).reshape(SVGP_TRACE_STEPS, ARCHIVE["b"], 1)
+    step = svgp_step_breakdown(p_fit, xc, yc, ARCHIVE["n"], "svgp-archive-step")
+    return {**rep, "launches": launches, "peak_gb": peak_gb, "step": step}
+
+
+def phase_accuracy(out: Path):
+    """gpras_tpu_torch.accuracy on the card: run_path f32 (SGPR) and f64
+    (the dense exact GP in float64) at DEFAULT_CONFIG, then run_exact_path
+    f32 (the production exact fit at N = 32,768: a dense 2,048-point rung,
+    the Hutchinson engine, CG serving) and f64 (the dense float64 posterior
+    at the fitted hyperparameters), held to the limits set from the JAX
+    package's record. One B1 launch per full-N loss evaluation and one B5
+    per full-N gradient step (each evaluation counted by a wrapper of
+    GPRAS._loss_fn), B2 and B3 in the prediction (timed by a wrapper of
+    GPRAS.predict)."""
+    import torch
+
+    from gpras_tpu_torch import accuracy
+    from gpras_tpu_torch.gp.model import GPRAS
+
+    t0 = time.perf_counter()
+    f32 = accuracy.run_path("f32", device=DEVICE)
+    path_f32_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    f64 = accuracy.run_path("f64", device=DEVICE)
+    path_f64_s = time.perf_counter() - t0
+    summary = accuracy.summarize(f32, f64)
+    log(f"[accuracy] run_path f32 (SGPR, M={accuracy.DEFAULT_CONFIG['n_inducing']}) "
+        f"{path_f32_s:.3f} s, f64 (dense exact) {path_f64_s:.3f} s, {int(f32['n_modes'][0])} HF "
+        f"modes: {summary}")
+
+    work = out / "accuracy"
+    work.mkdir(parents=True, exist_ok=True)
+    evals, times = [], {}
+    loss_fn, predict = GPRAS._loss_fn, GPRAS.predict
+
+    def counted_loss(self, params, y_i):
+        if self.x.shape[0] == N_ACC:
+            evals.append(torch.is_grad_enabled())
+        return loss_fn(self, params, y_i)
+
+    def timed_predict(self, x):
+        t = time.perf_counter()
+        result = predict(self, x)  # host arrays: the device's work is done
+        times["predict_s"] = time.perf_counter() - t
+        return result
+
+    GPRAS._loss_fn, GPRAS.predict = counted_loss, timed_predict
+    zero_counters()
+    try:
+        t0 = time.perf_counter()
+        e32 = accuracy.run_exact_path("f32", str(work), device=DEVICE)
+        exact_f32_s = time.perf_counter() - t0
+    finally:
+        GPRAS._loss_fn, GPRAS.predict = loss_fn, predict
+    launches = read_counters()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    e64 = accuracy.run_exact_path("f64", str(work), device=DEVICE)
+    exact_f64_s = time.perf_counter() - t0
+    gold_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    exact = accuracy.summarize_exact(e32, e64)
+    steps = sum(evals)
+    fit_s = exact_f32_s - times["predict_s"]
+    log(f"[accuracy] run_exact_path f32 at N={N_ACC}: fit {fit_s:.3f} s ({len(evals)} full-N loss "
+        f"evaluations, {steps} with a gradient), prediction of {accuracy.EXACT_CONFIG['n_test']} "
+        f"queries {times['predict_s']:.3f} s; f64 gold {exact_f64_s:.3f} s (peak "
+        f"{gold_peak_gb:.2f} GB); launches {launches}; {exact}")
+    expect_ok = (launches["gram"] == len(evals) and launches["kgrad_sym"] == steps > 0
+                 and launches["kmv_dense"] > 0 and launches["kmv_sym"] > 0
+                 and launches["kgrad_dense"] == 0)
+    limits = {"depth_rmse_ratio_f32_over_f64 <= 1.10":
+              summary["depth_rmse_ratio_f32_over_f64"] <= ACC_RATIO,
+              "coverage_2sigma_f32 >= 0.95": summary["coverage_2sigma_f32"] >= ACC_COVERAGE,
+              "exact_rmse_vs_f64 <= 1e-4": exact["exact_rmse_vs_f64"] <= EXACT_VS_F64,
+              "exact_rmse_ratio_f32_over_f64 <= 1.01":
+              exact["exact_rmse_ratio_f32_over_f64"] <= EXACT_RATIO}
+    log(f"[accuracy] limits {limits}; B1 once per full-N evaluation, B5 once per full-N step, "
+        f"B2 and B3 in the prediction: {expect_ok}")
+    if not (all(limits.values()) and expect_ok):
+        raise AssertionError("accuracy limits missed or the kernels did not run as stated")
+    return {"summary": summary, "exact": exact, "path_f32_s": path_f32_s,
+            "path_f64_s": path_f64_s, "exact_fit_s": fit_s, "exact_predict_s": times["predict_s"],
+            "exact_f64_s": exact_f64_s, "gold_peak_gb": gold_peak_gb,
+            "full_n_evaluations": len(evals), "full_n_steps": steps, "launches": launches,
+            "f32_paths": f32}
+
+
+def forcing_frame(n_events: int = 35, steps: int = 200, n_bc: int = 4, side: int = 64,
+                  seed: int = 21):
+    """A seeded HMS forcing frame: per event, six storm cells moving over a
+    side x side precip grid and four inflow hydrographs driven by them."""
+    rng = np.random.default_rng(seed)
+    gy, gx = np.meshgrid(np.linspace(0, 1, side), np.linspace(0, 1, side), indexing="ij")
+    centers = rng.uniform(0.2, 0.8, size=(6, 2))
+    cells = np.stack([np.exp(-((gx - cx) ** 2 + (gy - cy) ** 2) / 0.05)
+                      for cx, cy in centers]).reshape(6, -1)
+    t = np.arange(steps) / steps
+    route = rng.uniform(0.0, 1.0, size=(6, n_bc))
+    rows, events = [], []
+    for e in range(n_events):
+        storm = rng.uniform(0.0, 3.0, 6) * np.exp(
+            -((t[:, None] - rng.uniform(0.2, 0.6, 6)) ** 2) / rng.uniform(0.002, 0.02, 6))
+        precip = np.maximum(storm @ cells + 0.02 * rng.normal(size=(steps, side * side)), 0.0)
+        inflow = 20.0 + 200.0 * storm @ route
+        rows.append(np.concatenate([inflow, precip], axis=1))
+        events += [e] * steps
+    bc_mask = np.arange(n_bc + side * side) < n_bc
+    return np.concatenate(rows), bc_mask, ~bc_mask, np.asarray(events)
+
+
+def phase_metrics_hms(paths):
+    """compute_event_metrics per test event of phase 15's f32 depth fields
+    (truth, prediction, predicted sigma; 48 steps x 16,384 cells), with
+    t_tol = 3, v_tol = 0.1 and with the defaults, on the card against the
+    same call on the CPU (float64 on both, within METRIC_RTOL of each
+    output's scale, NaN where the CPU has NaN); then HmsPreProcessor's fit
+    and transform (event_reset on) on a seeded forcing frame, the card
+    against the CPU within HMS_RTOL."""
+    import torch
+
+    from gpras_tpu_torch import HmsPreProcessor, accuracy
+    from gpras_tpu_torch.metrics import compute_event_metrics
+
+    steps = accuracy.DEFAULT_CONFIG["t_steps"]
+    truth, field = paths["truth"], paths["field"]
+    sigma = np.sqrt(np.maximum(paths["field_var"], 0.0))
+    n_events = truth.shape[0] // steps
+    worst, card_s = 0.0, 0.0
+    for kwargs in (dict(t_tol=3, v_tol=0.1), dict()):
+        for e in range(n_events):
+            rows = slice(e * steps, (e + 1) * steps)
+            args = (truth[rows], field[rows], sigma[rows])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = compute_event_metrics(*(torch.as_tensor(a, device=DEVICE) for a in args),
+                                        **kwargs)
+            got = {k: v.cpu() for k, v in got.items()}
+            card_s += time.perf_counter() - t0
+            want = compute_event_metrics(*(torch.as_tensor(a) for a in args), **kwargs)
+            for k, w in want.items():
+                nan = torch.isnan(w)
+                if not torch.equal(torch.isnan(got[k]), nan):
+                    raise AssertionError(f"metric {k}: NaN where the CPU has none, or not")
+                if not bool(nan.all()):
+                    scale = max(float(w[~nan].abs().max()), 1e-300)
+                    worst = max(worst, float((got[k][~nan] - w[~nan]).abs().max()) / scale)
+    log(f"[metrics] compute_event_metrics on {n_events} events of {steps} x {truth.shape[1]} "
+        f"cells, twice (t_tol 3 / v_tol 0.1 and the defaults): card {card_s:.3f} s with the "
+        f"copies back; max relative difference to the CPU {worst:.3e} (limit {METRIC_RTOL})")
+
+    x, bc_mask, precip_mask, events = forcing_frame()
+    outs, fit_s = {}, {}
+    for dev in (DEVICE, "cpu"):
+        pre = HmsPreProcessor(event_reset=True, device=dev)
+        if dev == DEVICE:
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pre.fit(x, bc_mask, precip_mask, event_ids=events)
+        feats = pre.transform(x, event_ids=events)
+        fit_s[dev] = time.perf_counter() - t0
+        outs[dev] = (pre.precip_spatial_mode_count, feats)
+    modes, got = outs[DEVICE]
+    want = outs["cpu"][1]
+    hms_err = float(np.nanmax(np.abs(got - want)) / np.nanmax(np.abs(want)))
+    same_nan = bool(np.array_equal(np.isnan(got), np.isnan(want)))
+    log(f"[hms] HmsPreProcessor fit + transform on {x.shape[0]} rows ({events.max() + 1} events), "
+        f"{int(bc_mask.sum())} inflow columns, {int(precip_mask.sum())} precip cells, event_reset: "
+        f"{modes} precip modes (CPU {outs['cpu'][0]}); card {fit_s[DEVICE]:.3f} s, CPU "
+        f"{fit_s['cpu']:.3f} s; features {got.shape}, max relative difference {hms_err:.3e} "
+        f"(limit {HMS_RTOL}), NaN in the same places: {same_nan}")
+    if not (worst <= METRIC_RTOL and modes == outs["cpu"][0] and same_nan
+            and hms_err <= HMS_RTOL):
+        raise AssertionError("metrics or HmsPreProcessor on the card disagree with the CPU")
+    return {"metrics_card_s": card_s, "metrics_max_rel_err": worst, "hms_modes": modes,
+            "hms_card_s": fit_s[DEVICE], "hms_cpu_s": fit_s["cpu"], "hms_max_rel_err": hms_err}
+
+
 def main() -> int:
     import torch
 
@@ -1561,6 +2100,14 @@ def main() -> int:
     cold_cg = phase_cold_cg()
     torch.cuda.empty_cache()
     cold_hutch = phase_cold_hutchinson(x, y)
+    torch.cuda.empty_cache()
+    svgp_run = phase_svgp(out)
+    torch.cuda.empty_cache()
+    archive = phase_svgp_archive()
+    torch.cuda.empty_cache()
+    acc = phase_accuracy(out)
+    torch.cuda.empty_cache()
+    metrics_hms = phase_metrics_hms(acc.pop("f32_paths"))
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -1602,12 +2149,16 @@ def main() -> int:
         # wrapper calls in the cold fits, phase 11 (Hutchinson) and 12 (CG)
         kernels[-1]["launches_cold_hutchinson"] = cold_hutch["launches"][name]
         kernels[-1]["launches_cold_cg"] = cold_cg["launches"][name]
+        # wrapper calls in phase 15's exact accuracy path (N = 32,768)
+        kernels[-1]["launches_accuracy_exact"] = acc["launches"][name]
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
     log(json.dumps({"cg_training": {"checks_n49152": cg_checks, "fit_n131072": cg_fit}}))
     log(json.dumps({"sgpr": sgpr_run}))
     log(json.dumps({"cold_fit": {"hutchinson_n49152": cold_hutch, "cg_n65536": cold_cg}}))
+    log(json.dumps({"svgp": svgp_run, "svgp_archive": archive}))
+    log(json.dumps({"accuracy": acc, "metrics_hms": metrics_hms}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))

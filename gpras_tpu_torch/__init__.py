@@ -11,8 +11,10 @@ Hutchinson and CG engines, the warm-start protocol; the cold fit
 ``gp/coldfit.fit_exact``) and serving (checkpoint format, kernel zoo, dense
 and matrix-free batched-CG posteriors, EOF preprocessing and the bucketed
 ``PosteriorPredictor``); SGPR, ``GPRAS``'s default backend, with k-means
-inducing points; and the whole optimizer zoo (``fit/optimizers.FITTERS``).
-SVGP, the metrics, the pipeline and the distributed layer are still to come
+inducing points; SVGP (minibatch and streamed natural-gradient fits);
+``HmsPreProcessor``; the whole optimizer zoo (``fit/optimizers.FITTERS``);
+the flood-verification metrics (``metrics``) and the accuracy north stars
+(``accuracy``). The pipeline and the distributed layer are still to come
 (ROADMAP.md, queue A). Entry points run on the card (``device="cuda"``)
 unless the caller asks for the CPU.
 
@@ -24,11 +26,12 @@ package to this in a fresh interpreter.
 
 __version__ = "0.1.0"
 
-__all__ = ["GPRAS", "PreProcessor", "PosteriorPredictor", "__version__"]
+__all__ = ["GPRAS", "PreProcessor", "HmsPreProcessor", "PosteriorPredictor", "__version__"]
 
 _LAZY = {
     "GPRAS": ("gpras_tpu_torch.gp.model", "GPRAS"),
     "PreProcessor": ("gpras_tpu_torch.eof.preprocessor", "PreProcessor"),
+    "HmsPreProcessor": ("gpras_tpu_torch.eof.preprocessor", "HmsPreProcessor"),
     "PosteriorPredictor": ("gpras_tpu_torch.gp.serving", "PosteriorPredictor"),
 }
 

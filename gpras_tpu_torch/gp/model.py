@@ -1,7 +1,7 @@
-"""GPRAS: the high-level multi-output GP model — the SGPR and exact GPs, fit
-and served.
+"""GPRAS: the high-level multi-output GP model — the SGPR, SVGP and exact GPs,
+fit and served.
 
-Port of the SGPR and exact branches of ``gpras_tpu/gp/model.py``: one latent
+Port of ``gpras_tpu/gp/model.py``: one latent
 GP per EOF mode, parameters batched along a leading mode axis, posterior
 factors cached once and reused by every ``predict``. The reference ``vmap``s (or
 ``lax.map``s) over modes; here a Python loop walks them. Checkpoints are the
@@ -13,6 +13,13 @@ SGPR (``model_type="sgpr"``, the default) trains the collapsed ELBO
 k-means or grid inducing points (``ops/kmeans.py``); its posterior cache is
 (L, LB, c) per mode. It runs plain PyTorch only: no hand-written kernel is
 on its path, as none is on the reference's.
+
+SVGP (``model_type="svgp"``) trains the uncollapsed bound (``gp/svgp.py``)
+by minibatch Adam, optionally with natural-gradient steps on q, from k-means
+inducing points; its posterior is its parameters (no cache), so serving
+reads no training set. Plain PyTorch too. The modes' epoch permutations are
+drawn in order from one generator on ``device`` seeded with ``seed`` (the
+reference splits a JAX key per mode).
 
 Exact training follows the reference's engine ladder (``_loss_fn``): the dense
 custom-gradient NLML up to ``SUPER_THRESHOLD`` points (the reference's
@@ -29,8 +36,6 @@ per mode up to ``SUPER_THRESHOLD`` training points, the matrix-free CG engine
 mode, no (N, N) buffer) above it or with ``exact_engine="cg"``.
 
 Everything runs on ``device``, the card unless the caller asks for the CPU.
-Not ported yet (ROADMAP.md, queue A): the ``svgp`` backend (its
-construction raises).
 """
 
 from __future__ import annotations
@@ -44,7 +49,7 @@ import torch
 
 from gpras_tpu_torch.fit import optimizers as fitters
 from gpras_tpu_torch.gp import exact as exact_gp
-from gpras_tpu_torch.gp import exact_cg, exact_stochastic, sgpr, warmstart
+from gpras_tpu_torch.gp import exact_cg, exact_stochastic, sgpr, svgp, warmstart
 from gpras_tpu_torch.gp.exact_cg import cg_posterior_alpha, cg_predict, pivoted_cholesky
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import kmeans as km
@@ -106,7 +111,7 @@ def _torch_dtype(dtype: Any) -> torch.dtype:
 
 class GPRAS:
     """Multi-output GP for HEC-RAS upskilling/emulation (reference
-    gpras/gpr.py:217): SGPR or the exact GP."""
+    gpras/gpr.py:217): SGPR, SVGP or the exact GP."""
 
     #: thresholds of the reference's exact-engine ladder, kept for parity
     #: (sized there for a 16 GB TPU; re-deriving them for an 80 GB card is a
@@ -123,16 +128,12 @@ class GPRAS:
         with N: dense, then Hutchinson above 16,384 points, then the
         matrix-free CG engine above 55,000; "dense", "lean" (= dense here),
         "hutchinson", "cg"). For serving, "cg" forces the matrix-free
-        posterior at any N. Ignored by SGPR."""
+        posterior at any N. Ignored by SGPR and SVGP."""
         if kernel not in K.KERNEL_NAMES:
             raise ValueError(f"Unknown kernel {kernel!r}")
         if model_type not in ("sgpr", "svgp", "exact"):
             raise ValueError(f"Unknown model_type {model_type!r}; "
                              "expected 'sgpr', 'svgp' or 'exact'")
-        if model_type == "svgp":
-            raise NotImplementedError(
-                "model_type='svgp' is not ported yet (ROADMAP.md item A5); the port "
-                "fits and serves model_type='sgpr' and 'exact'")
         if exact_engine not in ("auto", "dense", "lean", "hutchinson", "cg"):
             raise ValueError(f"Unknown exact_engine {exact_engine!r}")
         self.kernel_str: str = kernel
@@ -160,10 +161,10 @@ class GPRAS:
             warm_start_subsample: int = 0, mesh: Any = None, **opt_kwargs: Any) -> None:
         """Fit one latent GP per output column of ``y``, mode after mode.
 
-        The reference's signature and defaults. SGPR needs ``n_inducing`` > 0
-        inducing points, placed by ``inducing_initializer`` ("kmeans":
-        k-means centers from a generator seeded 0; "grid"); the exact
-        backend ignores both. ``optimization_method`` is any key of
+        The reference's signature and defaults. SGPR and SVGP need
+        ``n_inducing`` > 0 inducing points, placed by ``inducing_initializer``
+        ("kmeans": k-means centers from a generator seeded 0; "grid"); the
+        exact backend ignores both. ``optimization_method`` is any key of
         ``fit/optimizers.FITTERS``; "stochastic" gets ``x`` for its
         inducing-point restarts.
         ``initial_params`` starts from a mode-batched parameter dict (e.g. a
@@ -181,10 +182,20 @@ class GPRAS:
         the reference.
         ``self.fit_info`` holds the optimizer's per-mode ``iterations``,
         ``losses`` and ``loss``, stacked along the mode axis.
+
+        SVGP trains by minibatch Adam only (``optimization_method="adam"``),
+        with the options ``batch_size`` (default min(4096, N)), ``epochs``
+        (default ``max_iter``, 100), ``learning_rate`` (0.01), ``seed`` (0)
+        and ``natgrad`` (the natural-gradient step's rate on q, default
+        off); any other option raises. Its ``fit_info`` holds ``losses``,
+        the epochs' mean losses per mode.
         """
-        if self.model_type == "sgpr" and n_inducing <= 0:
+        if self.model_type in ("sgpr", "svgp") and n_inducing <= 0:
             raise ValueError("sparse backends require n_inducing > 0 "
                              "(use model_type='exact' for a dense GP)")
+        if mesh is not None and self.model_type != "exact":
+            raise ValueError("mesh-distributed fitting supports model_type='exact' (the "
+                             "distributed engine ladder)")
         if mesh is not None:
             raise NotImplementedError(
                 "mesh-distributed fitting is not ported yet (ROADMAP.md item A6)")
@@ -241,6 +252,10 @@ class GPRAS:
             batched0 = {k: v.expand((p_modes,) + v.shape)
                         for k, v in self._init_params(inducing_initializer).items()}
 
+        if self.model_type == "svgp":
+            self._fit_svgp(batched0, optimization_method, opt_kwargs)
+            return
+
         fitter = fitters.FITTERS[optimization_method]
         if optimization_method == "stochastic":
             opt_kwargs.setdefault("x", self.x)
@@ -267,6 +282,35 @@ class GPRAS:
             # DE's "losses" are the final population's energies, not a history
             log_fit_losses(self.fit_info, name=f"GPRAS[{self.kernel_str}/{self.model_type}]")
 
+    def _fit_svgp(self, batched0: dict[str, Tensor], optimization_method: str,
+                  opt_kwargs: dict[str, Any]) -> None:
+        """Minibatch SVGP, mode after mode (``gp/svgp.make_minibatch_fit``);
+        the zoo's full-batch fitters do not apply."""
+        if optimization_method != "adam":
+            raise ValueError("model_type='svgp' trains with minibatch Adam; pass "
+                             f"optimization_method='adam' (got {optimization_method!r})")
+        bs = int(opt_kwargs.pop("batch_size", min(4096, self.x.shape[0])))
+        epochs = int(opt_kwargs.pop("epochs", opt_kwargs.pop("max_iter", 100)))
+        lr = float(opt_kwargs.pop("learning_rate", 0.01))
+        seed = int(opt_kwargs.pop("seed", 0))
+        ng = opt_kwargs.pop("natgrad", None)
+        if opt_kwargs:
+            raise ValueError(f"unsupported svgp fit options: {sorted(opt_kwargs)}")
+        fit_fn = svgp.make_minibatch_fit(self.kernel_str, batch_size=bs, epochs=epochs,
+                                         learning_rate=lr,
+                                         natgrad=None if ng is None else float(ng))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        fitted, hists = [], []
+        for i in range(self.y.shape[1]):
+            p_i, hist = fit_fn({k: v[i].contiguous() for k, v in batched0.items()}, self.x,
+                               self.y[:, i], gen)
+            fitted.append(p_i)
+            hists.append(hist)
+        self.params = {k: torch.stack([p[k] for p in fitted]) for k in fitted[0]}
+        self.fit_info = {"losses": torch.stack(hists)}
+        self._cache = None
+        log_fit_losses(self.fit_info, name=f"GPRAS[{self.kernel_str}/svgp]")
+
     def _engine(self) -> str:
         """The training engine for the current N (the reference's ladder)."""
         n = self.x.shape[0]
@@ -286,9 +330,12 @@ class GPRAS:
 
     def _loss_fn(self, params: dict[str, Tensor], y_i: Tensor) -> Tensor:
         """Mode ``y_i``'s training loss at ``params``: -(ELBO + log prior)
-        for SGPR, NLML minus log prior for the exact GP."""
+        for SGPR and SVGP (its full-batch bound; training takes minibatches),
+        NLML minus log prior for the exact GP."""
         if self.model_type == "sgpr":
             return sgpr.training_loss(self.kernel_str, params, self.x, y_i)
+        if self.model_type == "svgp":
+            return svgp.training_loss(self.kernel_str, params, self.x, y_i, self.x.shape[0])
         engine = self._engine()
         if engine == "cg":
             if self._cg_loss is None:
@@ -316,6 +363,8 @@ class GPRAS:
         if self.model_type == "exact":
             return exact_gp.init_params(self.kernel_str, self.x)
         z = self._create_inducing(self.x, self.n_inducing, inducing_initializer)
+        if self.model_type == "svgp":
+            return svgp.init_params(self.kernel_str, self.x, z)
         return sgpr.init_params(self.kernel_str, self.x, z)
 
     @staticmethod
@@ -342,7 +391,9 @@ class GPRAS:
         if self.params is None:
             raise RuntimeError("from_file() must run before predict()")
         modes = [self._mode_params(i) for i in range(self._n_modes)]
-        if self.model_type == "sgpr":
+        if self.model_type == "svgp":
+            self._cache = ()  # the variational posterior is the model's state
+        elif self.model_type == "sgpr":
             self._cache = tuple(_sgpr_posterior_cache(self.kernel_str, p, self.x, self.y[:, i])
                                 for i, p in enumerate(modes))
         elif self._matrix_free:
@@ -364,7 +415,9 @@ class GPRAS:
         means, variances = [], []
         for i in range(self._n_modes):
             p = self._mode_params(i)
-            if self.model_type == "sgpr":
+            if self.model_type == "svgp":
+                mean, var = svgp.predict(self.kernel_str, p, xq)
+            elif self.model_type == "sgpr":
                 mean, var = _sgpr_predict_from_cache(self.kernel_str, p, self._cache[i], xq)
             elif self._matrix_free:
                 mean, var = cg_predict(self.kernel_str, p, self.x, self.y[:, i], xq,

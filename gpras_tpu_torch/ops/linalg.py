@@ -37,32 +37,41 @@ def cholesky(k: Tensor, jitter: float | None = None) -> Tensor:
     return torch.linalg.cholesky(add_jitter(k, jitter))
 
 
-def _chol_attempt(k: Tensor, jcoef: float | Tensor, symmetrize: bool) -> tuple[Tensor, Tensor]:
-    """One factorization of (sym(K) + jcoef I); returns (L, info)."""
+def _chol_attempt(k: Tensor, jcoef: Tensor, symmetrize: bool) -> tuple[Tensor, Tensor]:
+    """One factorization of (sym(K) + jcoef I) (``jcoef`` one per matrix of
+    the batch); returns (L, info)."""
     if symmetrize:
         k = 0.5 * (k + k.mT)
-    return torch.linalg.cholesky_ex(k + jcoef * _eye_like(k))
+    return torch.linalg.cholesky_ex(k + jcoef[..., None, None] * _eye_like(k))
 
 
 class _SafeCholesky(torch.autograd.Function):
     """Forward: the escalation loop. Backward: the Cholesky gradient of one
     attempt at the final jitter coefficient, held constant (the reference's
-    custom VJP, linalg.py:99-117)."""
+    custom VJP, linalg.py:99-117). A batch of matrices escalates matrix by
+    matrix, each with its own scale, as the reference's loop does under
+    ``jax.vmap``."""
 
     @staticmethod
     def forward(ctx, k, max_tries, jitter, symmetrize):
         # the jitter scale is mean(diag K), which symmetrizing leaves as it is
-        scale = torch.mean(torch.diagonal(k, dim1=-2, dim2=-1))
-        j = float(jitter)
-        l, info = _chol_attempt(k, j * scale, symmetrize)
-        tries = 0
-        while tries < max_tries and bool(torch.any(info != 0)):
-            j = j * 10.0 if j > 0 else default_jitter(k.dtype)
-            l, info = _chol_attempt(k, j * scale, symmetrize)
-            tries += 1
-        if bool(torch.any(info != 0)):
-            l = torch.full_like(l, float("nan"))
-        ctx.save_for_backward(k, j * scale)
+        scale = torch.mean(torch.diagonal(k, dim1=-2, dim2=-1), dim=-1)
+        jcoef = jitter * scale
+        l, info = _chol_attempt(k, jcoef, symmetrize)
+        failed = info != 0
+        if bool(torch.any(failed)):  # the one host read of a call that factors at once
+            j = torch.full_like(scale, jitter)
+            tries = 0
+            while tries < max_tries and bool(torch.any(failed)):
+                j = torch.where(failed, torch.where(j > 0, j * 10.0, default_jitter(k.dtype)), j)
+                retry, retry_info = _chol_attempt(k, j * scale, symmetrize)
+                l = torch.where(failed[..., None, None], retry, l)
+                failed = failed & (retry_info != 0)
+                tries += 1
+            # a matrix that still fails comes back as NaN, as the reference's does
+            l = torch.where(failed[..., None, None], float("nan"), l)
+            jcoef = j * scale
+        ctx.save_for_backward(k, jcoef)
         ctx.symmetrize = symmetrize
         return l
 

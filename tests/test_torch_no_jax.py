@@ -2,9 +2,10 @@
 
 A fresh interpreter imports gpras_tpu_torch, serves a tiny exact-GP
 checkpoint on the CPU through every module of the serving slice, fits tiny
-models through the dense and the Hutchinson engines, fits and serves a tiny
-SGPR model, runs the cold exact fit on both of its engines, and checks that
-neither
+models through the dense and the Hutchinson engines, fits and serves tiny
+SGPR and SVGP models, runs the cold exact fit on both of its engines, fits
+an ``HmsPreProcessor``, computes an event's metrics, imports
+``gpras_tpu_torch.accuracy``, and checks that neither
 ``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
 which runs on that machine too, imports neither."""
 
@@ -54,6 +55,20 @@ sparse.fit(x, y, n_inducing=8, max_iter=3)
 sparse.to_file(out / "sgpr.npz")
 mean, var = PosteriorPredictor(out / "sgpr.npz", buckets=(8,), device="cpu").predict_modes(x[:5])
 assert mean.shape == var.shape == (5, 2) and np.isfinite(mean).all()
+variational = GPRAS("Matern52", model_type="svgp", dtype=torch.float64, device="cpu")
+variational.fit(x, y, n_inducing=8, optimization_method="adam", batch_size=16, epochs=2,
+                natgrad=0.5)
+variational.to_file(out / "svgp.npz")
+mean, var = PosteriorPredictor(out / "svgp.npz", buckets=(8,), device="cpu").predict_modes(x[:5])
+assert mean.shape == var.shape == (5, 2) and np.isfinite(mean).all()
+from gpras_tpu_torch import HmsPreProcessor, accuracy
+from gpras_tpu_torch.metrics import compute_event_metrics
+hms = HmsPreProcessor(device="cpu")
+hms.fit(np.abs(rng.normal(size=(30, 8))), np.arange(8) < 2, np.arange(8) >= 2,
+        precip_spatial_mode_count=2)
+m = compute_event_metrics(torch.as_tensor(field[:6]), torch.as_tensor(field[1:7]),
+                          torch.ones(6, 30, dtype=torch.float64))
+assert np.isfinite(float(m["rmse_aoi_toi"])) and accuracy.make_problem({"n_cells_hf": 64, "n_cells_lf": 16})["hf_train"].shape[0] > 0
 from gpras_tpu_torch.gp.coldfit import fit_exact
 for engine in ("hutchinson", "cg"):
     p, info = fit_exact("Matern52", torch.as_tensor(x), torch.as_tensor(y[:, 0]), engine=engine,

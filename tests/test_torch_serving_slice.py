@@ -158,9 +158,12 @@ def test_port_refuses_what_it_does_not_serve(artifacts):
     # mesh-distributed fit is still refused
     with pytest.raises(NotImplementedError, match="A6"):
         model.fit(np.zeros((4, D)), np.zeros((4, P)), mesh="auto")
-    # sgpr is ported (tests/test_torch_sgpr.py); svgp is still refused
-    with pytest.raises(NotImplementedError, match="A5"):
-        TGPRAS("RBF", model_type="svgp", device="cpu")
+    # sgpr and svgp are ported (tests/test_torch_sgpr.py, tests/test_torch_svgp.py);
+    # a sparse backend refuses a mesh as the reference does
+    with pytest.raises(ValueError, match="mesh-distributed"):
+        TGPRAS("RBF", model_type="svgp", device="cpu").fit(
+            np.zeros((4, D)), np.zeros((4, P)), n_inducing=2, optimization_method="adam",
+            mesh="auto")
 
 
 @pytest.mark.parametrize("active, noise", [((1.0, 0.6, 0.35), 0.01), ((3.5, 3.0, 3.0), 0.1)],
