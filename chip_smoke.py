@@ -7,8 +7,10 @@ modes, 49,152-cell fields), the matrix-free CG training path at
 N = 131,072, the SGPR backend (fit and serve, N = 49,152), the cold exact
 fit (Hutchinson at N = 49,152, CG at N = 65,536), the SVGP backend (fit and
 serve at N = 49,152; the archive-scale protocol at N = 2^20), the accuracy
-north stars and the metric suite, through the entry points a user calls,
-and checks every CUDA kernel on those paths:
+north stars, the metric suite, and the pipeline's run path
+(``python -m gpras_tpu_torch run`` with the exact backend at N = 17,920 and
+16,384 cells), through the entry points a user calls, and checks every CUDA
+kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
@@ -84,6 +86,17 @@ and checks every CUDA kernel on those paths:
    prediction), held to the JAX package's recorded accuracy
 16. compute_event_metrics on phase 15's predicted depth fields and
    HmsPreProcessor on a seeded forcing frame, on the card against the CPU
+17. the pipeline's run path through the CLI (gpras_tpu_torch.__main__.main)
+   on a seeded HEC-RAS project written as the builders' parquet DBs (35 train
+   / 14 test events x 512 steps x 16,384 cells, float32): "run" cold and
+   warm with the exact backend (a 2,048-point rung, then the Hutchinson
+   engine at N = 17,920: B1, B5; matrix-free serving: B2, B3), then
+   "predict" on 200 LF fields; held to the launch counters (B4 not run), the
+   served posterior of every mode against the dense float64 one (phase 4's
+   limits), the upskilled depth RMSE below the raw LF field's, the metric
+   DB's rows, timers.json's keys, predict against GPRAS.predict, and no
+   h5py, matplotlib or jax imported; B1, B2, B3 and B5 are also checked and
+   timed at these shapes in phase 2
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -167,6 +180,21 @@ N_ACC = 32_768  # accuracy.EXACT_CONFIG["n_train"]
 # phase 16: the card's float64 metrics and HmsPreProcessor against the CPU's
 METRIC_RTOL = 1e-10
 HMS_RTOL = 1e-8
+# phase 17, the pipeline's run path with the exact backend: the CLI's default
+# split of 35 train / 14 test events (gpras_tpu/__main__.py:37-38), 512
+# steps an event after clipping (5.3 days of 15-minute HEC-RAS output) and
+# accuracy.DEFAULT_CONFIG's 16,384 HF cells, so N = 17,920 training
+# snapshots: a dense 2,048-point rung, then the Hutchinson engine (B1, B5)
+# at full N, and matrix-free serving (B2, B3) above 16,384 points
+PIPE_EVENTS = (35, 14)
+PIPE_STEPS = 512
+PIPE_GRID = (128, 128)
+PIPE_BLOCK = 4        # the LF mesh's cells are 4 x 4 HF cells
+PIPE_MODES = 4
+PIPE_OPTIMIZER = {"max_iter": 30, "learning_rate": 0.05, "warm_start_subsample": 2048}
+PIPE_QUERIES = 256    # test queries of the posterior check (phase 4's limits)
+PIPE_FIELDS = 200     # LF test fields served by the predict command
+PREDICT_RTOL = 1e-5   # predict's output vs GPRAS.predict + reverse_transform, x max|want|
 
 
 def log(msg: str) -> None:
@@ -640,6 +668,53 @@ def phase_kernels():
     del params, x, x1, x2, v
     torch.cuda.empty_cache()
 
+    # The pipeline's run path (phase 17), Matern52 on its D = 4 EOF modes at
+    # N = 17,920: B1 (the Hutchinson forward) and B5 at m = 16 Rademacher
+    # probes (its backward) every full-N step; B2 for the posterior mean of
+    # the 7,168 test snapshots; B3 for the alpha solves (R = 1) and the
+    # variance solves (R = 256, the queries 256 at a time), beside the
+    # library call on a prebuilt Gram
+    n, nq, d = PIPE_EVENTS[0] * PIPE_STEPS, PIPE_EVENTS[1] * PIPE_STEPS, PIPE_MODES
+    params, x, _, _ = inputs(n, n, 1, d)
+    check("gram", kernel, f"{n}x{n} +noise D={d}",
+          lambda: fused_gram.gram(kernel, params, x, noise=noise),
+          lambda got: gram_error(kernel, f64(params), x.double(), None, 1e-2, got),
+          lambda: fused_gram.gram_plain(kernel, params, x, noise=noise),
+          gram_work(n, n, d),
+          grids=lambda: fused_gram._gram_cuda(kernel, params, x, None, noise))
+    w = torch.randn(n, M, generator=gen).to(dev)
+    z = (2 * torch.randint(0, 2, (n, M), generator=gen) - 1).float().to(dev)
+    alpha = torch.randn(n, generator=gen).to(dev)
+    check("kgrad_sym", kernel, f"N={n} m={M} D={d}",
+          lambda: fused_gram.kgrad_sym(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+          fused_gram.kgrad_plain(kernel, f64(params), x.double(), w.double(), z.double(),
+                                 alpha.double(), 1.3, 1.0 / M),
+          lambda: fused_gram.kgrad_plain(kernel, params, x, w, z, alpha, 1.3, 1.0 / M),
+          kgrad_work(n, d, M),
+          grids=lambda: fused_gram._kgrad_cuda(True, kernel, params, x, w, z, alpha, 1.3,
+                                               1.0 / M))
+    del w, z, alpha
+    params, x1, x2, v = inputs(nq, n, 1, d)
+    check("kmv_dense", kernel, f"{nq}x{n} R=1 D={d}",
+          lambda: fused_gram.kmv_dense(kernel, params, x1, v, x2=x2),
+          fused_gram.kmv_plain(kernel, f64(params), x1.double(), v.double(), x2=x2.double()),
+          lambda: fused_gram.kmv_plain(kernel, params, x1, v, x2=x2),
+          kmv_work(nq, n, 1, False, d),
+          library=lambda: prebuilt_matmul(kernel, params, x1, x2, None, v),
+          grids=lambda: fused_gram._kmv_dense_cuda(kernel, params, x1, v, x2, None))
+    for r in (1, 256):
+        params, x, _, v = inputs(n, n, r, d)
+        plan = fused_gram.kmv_sym_plan(n, d, r, sms)
+        check("kmv_sym", kernel, f"{n}x{n} R={r} D={d}",
+              lambda: fused_gram.kmv_sym(kernel, params, x, v, noise=noise),
+              fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), noise=1e-2),
+              lambda: fused_gram.kmv_plain(kernel, params, x, v, noise=noise),
+              kmv_work(n, n, r, True, d),
+              library=lambda: prebuilt_matmul(kernel, params, x, None, noise, v),
+              grids=lambda: fused_gram._kmv_sym_cuda(plan, kernel, params, x, v, noise)[:2])
+    del params, x, x1, x2, v
+    torch.cuda.empty_cache()
+
     # Every kernel at D = 300 (the wide path: 128 coordinates a point staged,
     # B2's tiled build 128 at a time; its rows design is not planned past 128):
     # B1 a small square, B2 a serving bucket against 8,192 points, B3 through
@@ -795,26 +870,22 @@ def phase_serving(out: Path):
     return pred, requests[0], launches, sym_grids, cache_s, latencies
 
 
-def phase_dense_check(pred, request):
-    """Mode 0 of the first request against the dense float64 exact posterior
-    of the same model, built and factorized on the card (the Gram and its
-    factor take ~19 GB each)."""
+def dense_posterior64(model, mode: int, xq):
+    """The dense float64 exact posterior (mean, variance) of ``model``'s mode
+    at the float64 queries ``xq``, as numpy arrays: the Gram built in row
+    panels and factorized on the card, with the served model's noise
+    (likelihood noise + the float32 relative jitter)."""
     import torch
 
     from gpras_tpu_torch.ops import kernels as K
     from gpras_tpu_torch.ops import linalg
 
-    xq_np = pred.lf_pre.transform(request)
-    mean, var = pred.predict_modes(xq_np)
-    model = pred.model
-    p = {k: v[0].double() for k, v in model.params.items()}
+    p = {k: v[mode].double() for k, v in model.params.items()}
     x = model.x.double()
-    xq = torch.as_tensor(xq_np, dtype=torch.float64, device=x.device)
-    t0 = time.perf_counter()
-    kmat = torch.empty((N, N), dtype=torch.float64, device=x.device)
-    for r0 in range(0, N, 4096):
+    n = x.shape[0]
+    kmat = torch.empty((n, n), dtype=torch.float64, device=x.device)
+    for r0 in range(0, n, 4096):
         kmat[r0:r0 + 4096] = K.gram("Matern52", p, x[r0:r0 + 4096], x)
-    # the served model's noise: likelihood noise + the float32 relative jitter
     noise = torch.exp(p["log_noise_variance"]) + \
         linalg.default_jitter(torch.float32) * torch.exp(p["log_variance"])
     kmat.diagonal().add_(noise)
@@ -822,14 +893,28 @@ def phase_dense_check(pred, request):
     del kmat
     if int(info) != 0:
         raise AssertionError(f"dense float64 Cholesky failed (info {int(info)})")
-    alpha = torch.cholesky_solve(model.y[:, :1].double(), chol)
+    alpha = torch.cholesky_solve(model.y[:, mode:mode + 1].double(), chol)
     ks = K.gram("Matern52", p, xq, x)
-    want_mean = (ks @ alpha)[:, 0].cpu().numpy()
+    mean = (ks @ alpha)[:, 0].cpu().numpy()
     v = torch.linalg.solve_triangular(chol, ks.T, upper=False)
-    want_var = (torch.clamp_min(K.kdiag("Matern52", p, xq) - (v * v).sum(0), 0.0)
-                + torch.exp(p["log_noise_variance"])).cpu().numpy()
+    var = (torch.clamp_min(K.kdiag("Matern52", p, xq) - (v * v).sum(0), 0.0)
+           + torch.exp(p["log_noise_variance"])).cpu().numpy()
     del chol, v
     torch.cuda.empty_cache()
+    return mean, var
+
+
+def phase_dense_check(pred, request):
+    """Mode 0 of the first request against the dense float64 exact posterior
+    of the same model, built and factorized on the card (the Gram and its
+    factor take ~19 GB each)."""
+    import torch
+
+    xq_np = pred.lf_pre.transform(request)
+    mean, var = pred.predict_modes(xq_np)
+    t0 = time.perf_counter()
+    xq = torch.as_tensor(xq_np, dtype=torch.float64, device=pred.model.x.device)
+    want_mean, want_var = dense_posterior64(pred.model, 0, xq)
     mean_err = float(np.abs(mean[:, 0] - want_mean).max())
     var_err = float((np.abs(var[:, 0] - want_var) / want_var).max())
     log(f"[check] mode 0, {len(want_mean)} queries vs dense float64 posterior "
@@ -2068,6 +2153,251 @@ def phase_metrics_hms(paths):
             "hms_card_s": fit_s[DEVICE], "hms_cpu_s": fit_s["cpu"], "hms_max_rel_err": hms_err}
 
 
+def pipeline_project(root: Path, seed: int = 17) -> Path:
+    """A seeded HEC-RAS project written as the builders would leave it, and
+    its run config; returns the config's path.
+
+    The HF water surface on a PIPE_GRID valley (a sloped bed, the channel
+    along its middle) is the channel's resting level plus three flood-wave
+    patterns (upstream, middle, downstream) whose hydrographs pass one after
+    the other with an event's peak, timing, width and lag, plus noise: a
+    random kick of each wave's amplitude every step (what the LF model does
+    not resolve) and 5 mm per cell; clamped at the ground. The
+    ``ras_upskill`` LF field is the wave without the kicks at 0.9 of its
+    amplitude on a mesh of PIPE_BLOCK x PIPE_BLOCK HF cells, resampled onto
+    the HF cells as builders.py:363-377 returns it, 0.1-0.15 m high, clamped
+    at the ground. float32, as HEC-RAS's HDF holds them. Written with the
+    port's export_db as the two parquet DBs of the config's working
+    directory, with the cell table and reference lines, and the event plans.
+    The RAS models, the AOI and the STAC items the config names are never
+    read: the DBs are valid, so the pipeline builds nothing."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import pandas as pd
+    import torch
+    import torch.nn.functional as F
+
+    from gpras_tpu_torch.data.reader import export_db
+
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    ny, nx = PIPE_GRID
+    cells, steps, b = ny * nx, PIPE_STEPS, PIPE_BLOCK
+    gy, gx = torch.meshgrid(*(torch.linspace(0, 1, k, device=DEVICE, dtype=torch.float64)
+                              for k in (ny, nx)), indexing="ij")
+    gx, gy = gx.reshape(-1), gy.reshape(-1)
+    elev = 2.0 * gx + 3.0 * (gy - 0.5).abs() + 0.05 * torch.sin(25 * gx) * torch.sin(25 * gy)
+    rest = 2.0 * gx + 0.2
+    waves = torch.stack([torch.exp(-((gx - c) / 0.3) ** 2) * (1.0 - 0.6 * (gy - 0.5).abs())
+                         for c in (0.15, 0.5, 0.85)])
+    lf_bias = 0.125 + 0.025 * torch.sin(2 * math.pi * gy)
+    t = torch.arange(steps, device=DEVICE, dtype=torch.float64)[:, None]
+
+    def coarse(w):  # the LF mesh's value on each HF cell
+        w = F.avg_pool2d(w.reshape(-1, 1, ny, nx), b)
+        return w.repeat_interleave(b, 2).repeat_interleave(b, 3).reshape(-1, cells)
+
+    n_train, n_test = PIPE_EVENTS
+    frames = {f"{f}_{split}": np.empty((n * steps, cells), np.float32)
+              for f in ("hf", "lf") for split, n in (("train", n_train), ("test", n_test))}
+    plans, ref = [], []
+    for e in range(n_train + n_test):
+        peak, t0, width, lag = (rng.uniform(0.5, 1.5), rng.uniform(0.25, 0.45) * steps,
+                                rng.uniform(0.08, 0.16) * steps, rng.uniform(0.04, 0.1) * steps)
+        hydro = torch.cat([s * peak * torch.exp(-((t - t0 - k * lag) / width) ** 2)
+                           for k, s in enumerate((1.0, 0.85, 0.7))], dim=1)
+        kicks = 0.08 * torch.randn(steps, 3, generator=gen, device=DEVICE, dtype=torch.float64)
+        hf = rest + (hydro + kicks) @ waves
+        hf += 0.005 * torch.randn(steps, cells, generator=gen, device=DEVICE, dtype=torch.float64)
+        lf = coarse(rest + 0.9 * hydro @ waves) + lf_bias
+        split, row = ("train", e) if e < n_train else ("test", e - n_train)
+        rows = slice(row * steps, (row + 1) * steps)
+        frames[f"hf_{split}"][rows] = torch.maximum(hf, elev).float().cpu().numpy()
+        frames[f"lf_{split}"][rows] = torch.maximum(lf, elev).float().cpu().numpy()
+        title = f"e{e:03d}"
+        plans.append({"plan_title": title, "event_number": e,
+                      "type": "Train" if split == "train" else "Test", "set": "AEP"})
+        stamps = pd.date_range("2020-01-01", periods=steps, freq="15min") + pd.Timedelta(days=7 * e)
+        q = (100.0 * hydro).cpu().numpy()
+        ref.append(pd.DataFrame({"inflow_flows": q[:, 0], "outflow_flows": q[:, 2],
+                                 "inflow_wse": 0.2 + 0.5 * np.log1p(q[:, 0]),
+                                 "outflow_wse": 2.2 + 0.5 * np.log1p(q[:, 2])}, index=stamps))
+    cent = torch.stack([gx, gy], 1).cpu().numpy() * (nx - 1) * 10.0  # 10 m cells
+    lf_cell = ((gy * (ny - 1)).round().long() // b * (nx // b)
+               + (gx * (nx - 1)).round().long() // b).cpu().numpy()
+    cell_info = pd.DataFrame({"hf_cell_id": np.arange(cells), "elevation": elev.cpu().numpy(),
+                              "area": np.full(cells, 100.0), "x": cent[:, 0], "y": cent[:, 1],
+                              "lf_cell_id": lf_cell})
+    root.mkdir(parents=True, exist_ok=True)
+    config = {"working_directory": str(root / "work"),
+              "hf_ras_stac_path": str(root / "hf" / "hf.stac.json"),
+              "area_of_interest_path": str(root / "aoi.geojson"),
+              "event_plan_path": str(root / "event_plans.json"), "mesh_id": "mesh1",
+              "hydraulic_parameter": "wse", "wet_threshold_depth": 0.1,
+              "spatial_mode_count": PIPE_MODES, "kernel": "Matern52", "inducing_pt_count": 0,
+              "optimizer": "adam", "induction_pt_initializer": "kmeans",
+              "optimizer_kwargs": PIPE_OPTIMIZER, "generate_plots": False, "save_dbs": True,
+              "lf_model_type": "ras_upskill", "lf_ras_stac_path": str(root / "lf" / "lf.stac.json"),
+              "model_backend": "exact", "dtype": "float32"}
+    (root / "event_plans.json").write_text(json.dumps(plans))
+    (root / "config.json").write_text(json.dumps(config, indent=2))
+    def write(split: str) -> None:
+        titles = [p["plan_title"] for p in plans if (p["type"] == "Train") == (split == "train")]
+        index = pd.MultiIndex.from_arrays([np.repeat(titles, steps),
+                                           np.tile(np.arange(steps), len(titles))],
+                                          names=["run", "t"])
+        frame = {f: pd.DataFrame(frames[f"{f}_{split}"], index=index, columns=np.arange(cells))
+                 for f in ("hf", "lf")}
+        first = 0 if split == "train" else n_train
+        db = {"train": "training.db", "test": "testing.db"}[split]
+        export_db(root / "work" / "data" / db, frame["hf"], frame["lf"], cell_info,
+                  pd.concat(ref[first:first + len(titles)]))
+
+    # the two DBs side by side: pyarrow writes outside the interpreter's lock
+    with ThreadPoolExecutor(2) as pool:
+        list(pool.map(write, ("train", "test")))
+    return root / "config.json"
+
+
+def phase_pipeline(out: Path):
+    """The pipeline's run path through the CLI on pipeline_project's DBs:
+    ``main(["run", config])`` cold (the DBs exist; the preprocessor is fit)
+    and warm (the DBs and the preprocessor replayed, the GP refit), then
+    ``main(["predict", ...])`` on PIPE_FIELDS LF test fields. Held to: B1,
+    B2, B3 and B5 launched in the cold run and B4 not; the served posterior
+    of every mode on PIPE_QUERIES test queries against the dense float64
+    posterior of the saved checkpoint (phase 4's limits); the upskilled
+    depth RMSE on the test events below the raw LF field's; the metric DB's
+    three tables, a row a test event; timers.json's four keys; predict's
+    output against GPRAS.predict + reverse_transform of the same fields
+    (PREDICT_RTOL x max|want|); and no h5py, matplotlib or jax imported."""
+    import contextlib
+    import io
+    import shutil
+    import sqlite3
+
+    import pandas as pd
+    import torch
+
+    from gpras_tpu_torch import GPRAS, PreProcessor
+    from gpras_tpu_torch.__main__ import main as cli
+    from gpras_tpu_torch.data.reader import RasReader
+    from gpras_tpu_torch.pipeline.config import Config
+
+    root = out / "pipeline"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    cfg_path = pipeline_project(root)
+    setup_s = time.perf_counter() - t0
+    config = Config.from_file(cfg_path)
+    test = RasReader(config.testing_data_db)
+    hf_test, lf_test = test.aligned_datasets
+    n_train = PIPE_EVENTS[0] * PIPE_STEPS
+    log(f"[pipeline] project: {PIPE_EVENTS[0]} train / {PIPE_EVENTS[1]} test events x "
+        f"{PIPE_STEPS} steps x {hf_test.shape[1]} cells (N = {n_train}), written as parquet "
+        f"DBs in {setup_s:.1f} s (set-up)")
+
+    runs = {}
+    for run in ("cold", "warm"):
+        zero_counters()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = cli(["run", str(cfg_path), "--device", DEVICE])
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t0
+        launches = read_counters()
+        summary = json.loads(buf.getvalue())
+        timers = json.loads(config.timer_path.read_text())
+        runs[run] = {"total_s": total_s, "timers": timers, "depth_rmse": summary["depth_rmse"],
+                     "launches": launches,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        log(f"[pipeline] run {run}: rc {rc}, {total_s:.3f} s; timers "
+            f"{ {k: round(v, 3) for k, v in timers.items()} }; depth RMSE "
+            f"{summary['depth_rmse']:.5f}; launches {launches}; peak device memory "
+            f"{runs[run]['peak_gb']:.3f} GB")
+        if rc != 0 or set(timers) != {"load_data", "preprocess_data", "fit_model",
+                                      "make_predictions"}:
+            raise AssertionError(f"run {run}: rc {rc}, timers {sorted(timers)}")
+    cold = runs["cold"]["launches"]
+    if min(cold[k] for k in ("gram", "kgrad_sym", "kmv_sym", "kmv_dense")) == 0 \
+            or cold["kgrad_dense"] != 0:
+        raise AssertionError(f"the cold run's launches are not the path's: {cold}")
+
+    pre = PreProcessor.from_file(config.hf_preprocessor_path, device=DEVICE)
+    hf_depth, lf_depth = pre.wse_2_depth(hf_test.values), pre.wse_2_depth(lf_test.values)
+    lf_rmse = float(np.sqrt(np.mean((hf_depth - lf_depth) ** 2)))
+    gp_rmse = runs["warm"]["depth_rmse"]
+    log(f"[pipeline] test depth RMSE: upskilled {gp_rmse:.5f} (cold run "
+        f"{runs['cold']['depth_rmse']:.5f}), raw LF field {lf_rmse:.5f}")
+    if not (gp_rmse < lf_rmse and runs["cold"]["depth_rmse"] < lf_rmse):
+        raise AssertionError("the upskilled field is no better than the raw LF field")
+
+    with sqlite3.connect(config.metric_db_path) as con:
+        tables = {name: pd.read_sql(f"select * from {name}", con)
+                  for name in ("scalar_metrics", "timeseries_metrics", "cell_metrics")}
+    events = sorted(set(hf_test.index.get_level_values("run")))
+    rows = {name: len(df) for name, df in tables.items()}
+    log(f"[pipeline] metric DB rows {rows} for {len(events)} test events")
+    if (sorted(tables["scalar_metrics"]["event"]) != events
+            or rows["timeseries_metrics"] != len(events) * PIPE_STEPS
+            or rows["cell_metrics"] != len(events) * hf_test.shape[1]):
+        raise AssertionError("the metric DB does not hold a row set per test event")
+
+    model = GPRAS.from_file(config.model_path, device=DEVICE)
+    x_test = pre.transform(lf_test.values)
+    pick = np.linspace(0, len(x_test) - 1, PIPE_QUERIES).astype(int)
+    mean, var = model.predict(x_test[pick])
+    xq = torch.as_tensor(x_test[pick], dtype=torch.float64, device=DEVICE)
+    mean_err = var_err = 0.0
+    for i in range(PIPE_MODES):
+        want_mean, want_var = dense_posterior64(model, i, xq)
+        mean_err = max(mean_err, float(np.abs(mean[:, i] - want_mean).max())
+                       / float(np.abs(want_mean).max()))
+        var_err = max(var_err, float((np.abs(var[:, i] - want_var) / want_var).max()))
+    noise = torch.exp(model.params["log_noise_variance"]).tolist()
+    log(f"[pipeline] served posterior of {PIPE_MODES} modes at {PIPE_QUERIES} test queries vs "
+        f"dense float64: mean max err {mean_err:.3e} x max|mean| (limit {MEAN_TOL}), variance "
+        f"max rel err {var_err:.3e} (limit {VAR_TOL}); fitted noise variances "
+        f"{[f'{v:.4g}' for v in noise]}")
+    if mean_err > MEAN_TOL or var_err > VAR_TOL:
+        raise AssertionError("the pipeline's served posterior disagrees with dense float64")
+
+    pick = np.linspace(0, len(lf_test) - 1, PIPE_FIELDS).astype(int)
+    fields = lf_test.values[pick]
+    np.savez(root / "fields.npz", fields=fields)
+    served = root / "served.npz"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = cli(["predict", str(config.model_path), str(root / "fields.npz"), str(served),
+                  "--hf-pre", str(config.hf_preprocessor_path),
+                  "--lf-pre", str(config.lf_preprocessor_path), "--device", DEVICE])
+    predict_s = time.perf_counter() - t0
+    with np.load(served) as z:
+        got = (z["field"], z["field_var"])
+    # the server pads the request with zero queries to a bucket of 256; on the
+    # card each query's solve is independent of the others in its batch
+    want = pre.reverse_transform(*model.predict(pre.transform(fields)))
+    predict_err = max(float(np.abs(g - w).max()) / float(np.abs(w).max())
+                      for g, w in zip(got, want))
+    log(f"[pipeline] predict command: {PIPE_FIELDS} LF fields in {predict_s:.3f} s (rc {rc}); "
+        f"against GPRAS.predict + reverse_transform: max err {predict_err:.3e} x max|want| "
+        f"(limit {PREDICT_RTOL})")
+    if rc != 0 or got[0].shape != fields.shape or predict_err > PREDICT_RTOL:
+        raise AssertionError("the predict command disagrees with GPRAS.predict")
+    loaded = sorted(m for m in ("h5py", "matplotlib", "jax") if m in sys.modules)
+    if loaded:
+        raise AssertionError(f"the pipeline's run path imported {loaded}")
+    return {"setup_s": setup_s, "n_train": n_train, "cells": int(hf_test.shape[1]), **runs,
+            "gp_depth_rmse": gp_rmse, "lf_depth_rmse": lf_rmse, "metric_rows": rows,
+            "posterior_mean_err": mean_err, "posterior_var_err": var_err,
+            "noise_variances": noise, "predict_s": predict_s, "predict_err": predict_err}
+
+
 def main() -> int:
     import torch
 
@@ -2108,6 +2438,8 @@ def main() -> int:
     acc = phase_accuracy(out)
     torch.cuda.empty_cache()
     metrics_hms = phase_metrics_hms(acc.pop("f32_paths"))
+    torch.cuda.empty_cache()
+    pipe = phase_pipeline(out)
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -2151,6 +2483,8 @@ def main() -> int:
         kernels[-1]["launches_cold_cg"] = cold_cg["launches"][name]
         # wrapper calls in phase 15's exact accuracy path (N = 32,768)
         kernels[-1]["launches_accuracy_exact"] = acc["launches"][name]
+        # wrapper calls in phase 17's cold pipeline run (N = 17,920)
+        kernels[-1]["launches_pipeline"] = pipe["cold"]["launches"][name]
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
@@ -2159,6 +2493,7 @@ def main() -> int:
     log(json.dumps({"cold_fit": {"hutchinson_n49152": cold_hutch, "cg_n65536": cold_cg}}))
     log(json.dumps({"svgp": svgp_run, "svgp_archive": archive}))
     log(json.dumps({"accuracy": acc, "metrics_hms": metrics_hms}))
+    log(json.dumps({"pipeline": pipe}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))

@@ -14,9 +14,11 @@ and matrix-free batched-CG posteriors, EOF preprocessing and the bucketed
 inducing points; SVGP (minibatch and streamed natural-gradient fits);
 ``HmsPreProcessor``; the whole optimizer zoo (``fit/optimizers.FITTERS``);
 the flood-verification metrics (``metrics``) and the accuracy north stars
-(``accuracy``). The pipeline and the distributed layer are still to come
-(ROADMAP.md, queue A). Entry points run on the card (``device="cuda"``)
-unless the caller asks for the CPU.
+(``accuracy``); the pipeline's ``run`` path (``pipeline.Config``, the data
+layer and its parquet replay, ``pipeline.pipeline``, cross-validation and
+``python -m gpras_tpu_torch``). The run-generation tooling and the
+distributed layer are still to come (ROADMAP.md, queue A). Entry points run
+on the card (``device="cuda"``) unless the caller asks for the CPU.
 
 Import rule: this package imports ``torch`` and ``numpy`` and NEVER ``jax``,
 nor ``gpras_tpu`` (whose ``__init__`` imports jax). The machine that runs the

@@ -48,9 +48,13 @@ def compute_norths_rule(eigenvalues: np.ndarray, n_samples: int) -> int:
 
 
 def _matmul(a: np.ndarray, b: np.ndarray, device: torch.device) -> np.ndarray:
-    """a @ b computed on ``device``, returned on the host."""
-    ta = torch.as_tensor(np.asarray(a), device=device)
-    tb = torch.as_tensor(np.asarray(b), device=device)
+    """a @ b computed on ``device`` in the dtype numpy promotes the two to (a
+    float32 posterior variance against the float64 map of an area-weighted
+    fit is float64), returned on the host."""
+    a, b = np.asarray(a), np.asarray(b)
+    dtype = np.result_type(a, b)
+    ta = torch.as_tensor(a.astype(dtype, copy=False), device=device)
+    tb = torch.as_tensor(b.astype(dtype, copy=False), device=device)
     return (ta @ tb).cpu().numpy()
 
 

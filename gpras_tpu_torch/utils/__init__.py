@@ -1,1 +1,2 @@
-"""Host utilities: serialization and JAX-free parameter conversion."""
+"""Host utilities: serialization, JAX-free parameter conversion, phase timers and
+profiler traces, the owned CRS engine and file helpers."""

@@ -5,8 +5,9 @@ checkpoint on the CPU through every module of the serving slice, fits tiny
 models through the dense and the Hutchinson engines, fits and serves tiny
 SGPR and SVGP models, runs the cold exact fit on both of its engines, fits
 an ``HmsPreProcessor``, computes an event's metrics, imports
-``gpras_tpu_torch.accuracy``, and checks that neither
-``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
+``gpras_tpu_torch.accuracy``, replays a parquet DB through
+``python -m gpras_tpu_torch run`` (``__main__.main``), and checks that
+neither ``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
 which runs on that machine too, imports neither."""
 
 import ast
@@ -74,6 +75,37 @@ for engine in ("hutchinson", "cg"):
     p, info = fit_exact("Matern52", torch.as_tensor(x), torch.as_tensor(y[:, 0]), engine=engine,
                         max_iter=2, probes=8, cg_iters=16, seg_iters=4, precond_rank=8)
     assert info["iterations"] >= 1 and np.isfinite(float(info["loss"]))
+import contextlib, io, json
+import pandas as pd
+from gpras_tpu_torch.__main__ import main as cli
+from gpras_tpu_torch.data.reader import export_db
+steps, cells, plans = 24, 30, ["e0", "e1", "e2", "e3"]
+hydro = np.exp(-((np.arange(steps)[:, None] - 10.0) / 5.0) ** 2)
+wave = np.sin(np.linspace(0, 3, cells))[None, :]
+work = out / "work"
+for split, names in (("training", plans[:3]), ("testing", plans[3:])):
+    hf = np.concatenate([elev + 1.0 + (1 + 0.3 * plans.index(n)) * hydro * (1 + wave)
+                         + 0.01 * rng.normal(size=(steps, cells)) for n in names])
+    index = pd.MultiIndex.from_arrays([np.repeat(names, steps), np.tile(np.arange(steps),
+                                       len(names))], names=["run", "t"])
+    cell_info = pd.DataFrame({"hf_cell_id": np.arange(cells), "elevation": elev,
+                              "area": np.ones(cells), "x": np.arange(cells) * 1.0,
+                              "y": np.zeros(cells), "lf_cell_id": np.arange(cells) // 2})
+    export_db(work / "data" / f"{split}.db", pd.DataFrame(hf, index=index),
+              pd.DataFrame(hf + 0.1, index=index), cell_info)
+(out / "plans.json").write_text(json.dumps([{"plan_title": n, "event_number": i, "set": "AEP",
+    "type": "Test" if n == "e3" else "Train"} for i, n in enumerate(plans)]))
+(out / "cfg.json").write_text(json.dumps({"working_directory": str(work),
+    "hf_ras_stac_path": "unused", "area_of_interest_path": "unused",
+    "event_plan_path": str(out / "plans.json"), "mesh_id": "m", "hydraulic_parameter": "wse",
+    "wet_threshold_depth": 0.05, "spatial_mode_count": 2, "kernel": "Matern52",
+    "inducing_pt_count": 0, "optimizer": "adam", "induction_pt_initializer": "grid",
+    "optimizer_kwargs": {"max_iter": 3}, "generate_plots": False, "save_dbs": True,
+    "lf_model_type": "ras_upskill", "model_backend": "exact", "dtype": "float64"}))
+with contextlib.redirect_stdout(io.StringIO()) as buf:
+    assert cli(["run", str(out / "cfg.json"), "--device", "cpu"]) == 0
+assert np.isfinite(json.loads(buf.getvalue())["depth_rmse"])
+assert (work / "metrics" / "performance_metrics.db").exists()
 bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpras_tpu"))
 assert not bad, bad
 print("NO_JAX_OK")
