@@ -7,10 +7,11 @@ modes, 49,152-cell fields), the matrix-free CG training path at
 N = 131,072, the SGPR backend (fit and serve, N = 49,152), the cold exact
 fit (Hutchinson at N = 49,152, CG at N = 65,536), the SVGP backend (fit and
 serve at N = 49,152; the archive-scale protocol at N = 2^20), the accuracy
-north stars, the metric suite, and the pipeline's run path
+north stars, the metric suite, the pipeline's run path
 (``python -m gpras_tpu_torch run`` with the exact backend at N = 17,920 and
-16,384 cells), through the entry points a user calls, and checks every CUDA
-kernel on those paths:
+16,384 cells) and the run-generation tooling (``select-events`` on a
+10,000-event SST catalog, ``make-runs`` for its 49 storms), through the entry
+points a user calls, and checks every CUDA kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
@@ -97,6 +98,17 @@ kernel on those paths:
    DB's rows, timers.json's keys, predict against GPRAS.predict, and no
    h5py, matplotlib or jax imported; B1, B2, B3 and B5 are also checked and
    timed at these shapes in phase 2
+18. the run-generation tooling through the CLI: "select-events" on a seeded
+   SST catalog of 10,000 events x 72 hourly rows (its diversity fill's two
+   PCAs on the card, held to the numpy pca_fit_reference, and its STAC item
+   byte for byte the CPU path's), then "make-runs" for the 49 selected storms
+   on a project with tests/data/cedar_basin.u01 as the template flow file,
+   each event's SST.dss a stand-in (a JSON file of its flow records read
+   through data/dss.set_dss_factory: the card's machine has no hecdss and no
+   DSS files) and no precipitation (hdf_2_dss reads an HDF5 grid; h5py is
+   not there); held to 49 flow files and plans registered in the .prj, each
+   read back with its event's record window, and the manifest's 35 / 14
+   split through the pipeline's event-plan reader; no kernel runs here
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -195,6 +207,17 @@ PIPE_OPTIMIZER = {"max_iter": 30, "learning_rate": 0.05, "warm_start_subsample":
 PIPE_QUERIES = 256    # test queries of the posterior check (phase 4's limits)
 PIPE_FIELDS = 200     # LF test fields served by the predict command
 PREDICT_RTOL = 1e-5   # predict's output vs GPRAS.predict + reverse_transform, x max|want|
+# phase 18, the run-generation tooling: 1,000 catalog years at the reference's
+# arrival rate of 10 events a year (gpras_tpu/pipeline/event_selection.py:67),
+# 72 hourly rows an event (the SST event length hdf_2_dss assumes,
+# gpras_tpu/pipeline/run_maker.py:236-241), the CLI's defaults (35 train and
+# 14 test storms at RPs 2-2,000, gpras_tpu/__main__.py:37-41)
+SST_EVENTS = 10_000
+SST_STEPS = 72
+SST_PCA_RTOL = 1e-10  # the card's float64 PCAs vs pca_fit_reference, x max|want|
+# the base-flow BCs of tests/data/cedar_basin.u01 (bc_<element>_base) and
+# each one's share of the event's inflow in the stand-in records
+SST_ELEMENTS = {"cedar_s120": 0.5, "cedar_s110": 0.3, "salado_s220": 0.2}
 
 
 def log(msg: str) -> None:
@@ -2398,6 +2421,253 @@ def phase_pipeline(out: Path):
             "noise_variances": noise, "predict_s": predict_s, "predict_err": predict_err}
 
 
+def sst_catalog(path: Path, n_events: int = SST_EVENTS, steps: int = SST_STEPS,
+                seed: int = 18) -> dict[str, np.ndarray]:
+    """A seeded SST storm catalog in EventSelection's schema (event_id,
+    datetime, precip-cum, precip-excess, inflow; one row an event-hour),
+    written as parquet; returns its columns as (events, steps) arrays.
+
+    As tests/test_tooling.py::make_sst_parquet makes them: a lognormal scale
+    an event, a cumulative precip of |N(scale, 0.3)| increments, an inflow
+    pulse of 100 x scale and a precip excess that follows the rain; here the
+    pulses' shapes vary too (a lognormal width, a lognormal lag of the inflow
+    behind the rain and a lognormal spread of its pulse), so each hydrograph
+    pivot has a spectrum whose first five components are well apart (every
+    gap above 1e-3 of the first at 2,000 and 10,000 events) and the PCA is
+    well posed. Events start four days apart, at a random hour, from 1979."""
+    import pandas as pd
+
+    rng = np.random.default_rng(seed)
+    scale = np.exp(rng.normal(0.0, 1.0, n_events))[:, None]
+    t = np.linspace(0.0, 1.0, steps)[None, :]
+    peak = rng.uniform(0.2, 0.6, n_events)[:, None]
+    width = np.exp(rng.normal(np.log(0.08), 0.35, n_events))[:, None]
+    lag = np.exp(rng.normal(np.log(0.1), 0.3, n_events))[:, None]
+    spread = np.exp(rng.normal(np.log(1.8), 0.2, n_events))[:, None]
+    cols = {"event_id": np.repeat(np.arange(1, n_events + 1), steps).reshape(n_events, steps),
+            "precip-cum": np.cumsum(np.abs(rng.normal(scale, 0.3, (n_events, steps))), axis=1),
+            "precip-excess": 2.0 * scale * np.exp(-((t - peak) / width) ** 2),
+            "inflow": 100.0 * scale * np.exp(-((t - peak - lag) / (spread * width)) ** 2)}
+    hours = np.arange(n_events) * 96 + rng.integers(0, 24, n_events)
+    cols["datetime"] = (np.datetime64("1979-01-01T00", "h") + hours[:, None]
+                        + np.arange(steps)[None, :]).astype("datetime64[ns]")
+    pd.DataFrame({k: cols[k].reshape(-1) for k in
+                  ("event_id", "datetime", "precip-cum", "precip-excess", "inflow")}
+                 ).to_parquet(path)
+    return cols
+
+
+def stand_in_dss():
+    """A FakeDss whose records live in the file it opens (a JSON map of DSS
+    path to times and values), so a copied file carries its records: the
+    stand-in for an event's SST.dss, which make-runs copies into the
+    project and opens there. The card's machine has no hecdss."""
+    from datetime import datetime
+
+    from gpras_tpu_torch.data.dss import FakeDss, FakeRecord
+
+    class StandInDss(FakeDss):
+        def __init__(self, path: str):
+            with open(path) as f:
+                records = json.load(f)
+            self.stores = {str(path): {
+                FakeDss._normalize(k): FakeRecord(
+                    values=np.asarray(v["values"]),
+                    times=[datetime.fromisoformat(s) for s in v["times"]])
+                for k, v in records.items()}}
+            super().__init__(path)
+
+    return StandInDss
+
+
+def phase_run_tooling(out: Path):
+    """The run-generation tooling through the CLI. ``main(["select-events",
+    catalog, stac, "--device", DEVICE])`` at the CLI's defaults on
+    sst_catalog's 10,000 events, its two PCAs recorded and timed on the card;
+    held to: each PCA against pca_fit_reference on the same input
+    (SST_PCA_RTOL x max|want| on components and explained variance, both
+    float64), the STAC item byte for byte what EventSelection(...,
+    device="cpu") and write_events_stac write from the same file, 35 Train
+    and 14 Test storms without overlap, and the Sets Max, AEP and Diverse.
+    Then ``main(["make-runs", settings])`` on a project holding a .prj and
+    tests/data/cedar_basin.u01 as the template flow file, the STAC's hrefs on
+    stand-in SST.dss files (stand_in_dss) and no precip grid; held to 49 flow
+    files and 49 plans registered in the .prj, each flow file's base-flow BCs
+    pointed at the event's record window (the DSS path's D part) and each
+    plan's Simulation Date on it, and the manifest's 35 Train and 14 Test
+    titles through the pipeline's event-plan reader (Config.train_plans,
+    Config.test_plans); and no h5py or jax imported."""
+    import contextlib
+    import importlib.util
+    import io
+    import shutil
+
+    import torch
+
+    from gpras_tpu_torch.__main__ import main as cli
+    from gpras_tpu_torch.data import dss
+    from gpras_tpu_torch.data.flow_file import FlowHydrographBC, UnsteadyFlowFile
+    from gpras_tpu_torch.data.plan_file import PlanFile
+    from gpras_tpu_torch.eof.pca import pca_fit_reference
+    from gpras_tpu_torch.pipeline import event_selection as es
+    from gpras_tpu_torch.pipeline.config import Config
+
+    probe = {m: importlib.util.find_spec(m) is not None for m in ("hecdss", "boto3", "h5py")}
+    log(f"[run tooling] importable here: {probe}; the SST.dss files below are stand-ins "
+        f"(JSON records through data/dss.set_dss_factory), not HEC-DSS files")
+    root = out / "run_tooling"
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    t0 = time.perf_counter()
+    catalog = sst_catalog(root / "sst.pq", SST_EVENTS)
+    catalog_s = time.perf_counter() - t0
+    rows = SST_EVENTS * SST_STEPS
+    log(f"[run tooling] SST catalog: {SST_EVENTS} events x {SST_STEPS} hourly rows "
+        f"({rows} rows) written as parquet in {catalog_s:.2f} s (set-up)")
+
+    events_dir = root / "events"
+    pcas = []
+    pca_fit = es.pca_fit
+
+    def recording(x, k):  # the diversity fill's PCA, timed on the card
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        comps, explained = pca_fit(x, k)
+        end.record()
+        end.synchronize()
+        pcas.append((x.cpu().numpy(), comps.cpu().numpy(), explained.cpu().numpy(),
+                     start.elapsed_time(end), x.device.type, x.dtype))
+        return comps, explained
+
+    stac = root / "events.stac.json"
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    es.pca_fit = recording
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli(["select-events", str(root / "sst.pq"), str(stac),
+                      "--s3-prefix", str(events_dir), "--device", DEVICE])
+        torch.cuda.synchronize()
+        select_s = time.perf_counter() - t0
+    finally:
+        es.pca_fit = pca_fit
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    pca = []
+    for x, comps, explained, ms, where, dtype in pcas:
+        want_c, want_e = pca_fit_reference(x, comps.shape[0])
+        pca.append({"shape": list(x.shape), "device": where, "dtype": str(dtype), "ms": ms,
+                    "components_err": float(np.abs(comps - want_c).max() / np.abs(want_c).max()),
+                    "explained_err": float(np.abs(explained - want_e).max()
+                                           / np.abs(want_e).max()),
+                    "explained_variance": explained.tolist()})
+    errs = ", ".join(f"{p['components_err']:.3e} / {p['explained_err']:.3e}" for p in pca)
+    log(f"[run tooling] select-events on the card: rc {rc}, {select_s:.3f} s; PCAs "
+        f"{[(p['shape'], p['device'], round(p['ms'], 3)) for p in pca]} (ms on the card); "
+        f"against pca_fit_reference (components / explained variance, x max|want|, limit "
+        f"{SST_PCA_RTOL}): {errs}; peak device memory {peak_gb:.4f} GB")
+    if rc != 0 or len(pca) != 2 or any(
+            p["device"] != torch.device(DEVICE).type or p["dtype"] != "torch.float64"
+            or max(p["components_err"], p["explained_err"]) > SST_PCA_RTOL for p in pca):
+        raise AssertionError("select-events' PCAs on the card disagree with pca_fit_reference")
+
+    t0 = time.perf_counter()  # the same selection on the CPU, at the CLI's defaults
+    cpu_stac = root / "events_cpu.stac.json"
+    sel = es.EventSelection(str(root / "sst.pq"), test_rp_range=[5.0, 2000.0], device="cpu")
+    storms, _ = sel.run_selection(35, 14, [2.0, 5.0, 10.0, 25.0, 50.0, 100.0, 200.0, 500.0,
+                                           1000.0, 2000.0])
+    es.write_events_stac(storms, str(events_dir), str(cpu_stac))
+    cpu_s = time.perf_counter() - t0
+    item = json.loads(stac.read_text())
+    assets = item["assets"]
+    roles = [a["roles"][0] for a in assets.values()]
+    sets = sorted({a["properties"]["Set"] for a in assets.values()})
+    same = stac.read_bytes() == cpu_stac.read_bytes()
+    log(f"[run tooling] the STAC item ({stac.stat().st_size} bytes) equals the CPU path's "
+        f"({cpu_s:.3f} s) byte for byte: {same}; {roles.count('Train')} Train, "
+        f"{roles.count('Test')} Test, Sets {sets}")
+    if not same or roles.count("Train") != 35 or roles.count("Test") != 14 \
+            or len(assets) != 49 or not {"Max", "AEP", "Diverse"} <= set(sets):
+        raise AssertionError("select-events' selection is not the CPU path's or not the split")
+
+    # stand-in SST.dss files at the STAC's hrefs, and no precip grid
+    window = {}
+    for key, asset in assets.items():
+        e = int(asset["event_id"]) - 1
+        times = [str(s) for s in catalog["datetime"][e].astype("datetime64[s]")]
+        Path(asset["href"]).parent.mkdir(parents=True, exist_ok=True)
+        Path(asset["href"]).write_text(json.dumps({
+            f"/SST/{el}/FLOW-BASE/01JAN1900-02JAN1900/1HOUR/RUN:SST/":
+                {"times": times, "values": (share * catalog["inflow"][e]).tolist()}
+            for el, share in SST_ELEMENTS.items()}))
+        asset["precip_hdf_href"] = ""
+        start, end = catalog["datetime"][e][[0, -1]].astype("datetime64[s]").tolist()
+        window[key] = (f"{start:%d%b%Y}-{end:%d%b%Y}".upper(),
+                       f"{start:%d%b%Y,%H%M},{end:%d%b%Y,%H%M}".upper())
+    stac.write_text(json.dumps(item, indent=2))
+    model = root / "model"
+    model.mkdir()
+    (model / "cedar.prj").write_text("Proj Title=cedar basin\nCurrent Plan=p01\n"
+                                     "Geom File=g01\n")
+    settings = root / "settings.json"
+    settings.write_text(json.dumps({
+        "events_stac_path": str(stac), "output_path": str(root / "event_plans.json"),
+        "ras_prj_path": str(model / "cedar.prj"),
+        "template_flow_path": str(ROOT / "tests" / "data" / "cedar_basin.u01")}))
+    dss.set_dss_factory(stand_in_dss())
+    try:
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            rc = cli(["make-runs", str(settings)])
+        make_s = time.perf_counter() - t0
+    finally:
+        dss.set_dss_factory(None)
+
+    prj = (model / "cedar.prj").read_text()
+    flows = sorted(model.glob("cedar.u[0-9][0-9]"))
+    plans = sorted(model.glob("cedar.p[0-9][0-9]"))
+    manifest = json.loads((root / "event_plans.json").read_text())
+    bad = []
+    for i, (key, row) in enumerate(zip(assets, manifest), start=1):
+        flow = UnsteadyFlowFile.from_file(str(model / f"cedar.u{i:02d}"))
+        plan = PlanFile.from_file(model / f"cedar.p{i:02d}")
+        parts = {bc.dss_path.split("/")[4] for bc in flow.boundary_conditions.bcs
+                 if isinstance(bc, FlowHydrographBC) and bc.bc_line_id.strip().endswith("_base")}
+        if (str(row["event_number"]) != key or parts != {window[key][0]}
+                or plan.settings["Simulation Date"] != window[key][1]
+                or plan.settings["Flow File"] != f"u{i:02d}"):
+            bad.append((i, key, sorted(parts), plan.settings["Simulation Date"], window[key]))
+    config = Config(working_directory=str(root / "work"), hf_ras_stac_path="unused",
+                    area_of_interest_path="unused",
+                    event_plan_path=str(root / "event_plans.json"), mesh_id="mesh1",
+                    hydraulic_parameter="wse", wet_threshold_depth=0.1, spatial_mode_count=4,
+                    kernel="Matern52", inducing_pt_count=0, optimizer="adam",
+                    induction_pt_initializer="kmeans", optimizer_kwargs={},
+                    generate_plots=False, save_dbs=True, lf_model_type="ras_upskill")
+    n_runs = len(manifest)
+    ms_per_run = 1e3 * make_s / max(n_runs, 1)
+    log(f"[run tooling] make-runs: rc {rc}, {n_runs} runs in {make_s:.3f} s "
+        f"({ms_per_run:.2f} ms a run); {len(flows)} flow files, "
+        f"{len(plans)} plans, .prj rows {prj.count('Unsteady File=')} / "
+        f"{prj.count('Plan File=')}; runs off their event's window: {bad[:3]}; the pipeline "
+        f"reads {len(config.train_plans)} Train / {len(config.test_plans)} Test plans")
+    if (rc != 0 or n_runs != 49 or len(flows) != 49 or len(plans) != 49 or bad
+            or prj.count("Unsteady File=") != 49 or prj.count("Plan File=") != 49
+            or len(config.train_plans) != 35 or len(config.test_plans) != 14):
+        raise AssertionError("make-runs did not write the selection's 49 runs")
+    loaded = sorted(m for m in ("h5py", "jax") if sys.modules.get(m) is not None)
+    if loaded:
+        raise AssertionError(f"the run-generation tooling imported {loaded}")
+    return {"catalog_events": SST_EVENTS, "catalog_rows": rows, "catalog_setup_s": catalog_s,
+            "importable": probe, "sst_dss": "stand-ins (JSON records), not HEC-DSS files",
+            "select_events_s": select_s, "pca": pca, "peak_device_gb": peak_gb,
+            "cpu_select_events_s": cpu_s, "stac_equal_cpu": same,
+            "train": 35, "test": 14, "sets": sets, "make_runs_s": make_s,
+            "make_runs_ms_per_run": ms_per_run, "runs": n_runs,
+            "imported": loaded}
+
+
 def main() -> int:
     import torch
 
@@ -2440,6 +2710,8 @@ def main() -> int:
     metrics_hms = phase_metrics_hms(acc.pop("f32_paths"))
     torch.cuda.empty_cache()
     pipe = phase_pipeline(out)
+    torch.cuda.empty_cache()
+    tooling = phase_run_tooling(out)
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -2494,6 +2766,7 @@ def main() -> int:
     log(json.dumps({"svgp": svgp_run, "svgp_archive": archive}))
     log(json.dumps({"accuracy": acc, "metrics_hms": metrics_hms}))
     log(json.dumps({"pipeline": pipe}))
+    log(json.dumps({"run_tooling": tooling}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))

@@ -16,9 +16,11 @@ inducing points; SVGP (minibatch and streamed natural-gradient fits);
 the flood-verification metrics (``metrics``) and the accuracy north stars
 (``accuracy``); the pipeline's ``run`` path (``pipeline.Config``, the data
 layer and its parquet replay, ``pipeline.pipeline``, cross-validation and
-``python -m gpras_tpu_torch``). The run-generation tooling and the
-distributed layer are still to come (ROADMAP.md, queue A). Entry points run
-on the card (``device="cuda"``) unless the caller asks for the CPU.
+``python -m gpras_tpu_torch``); the run-generation tooling (flow and plan
+files, ``RasModel``'s run creation, SST fetch, event selection, the run
+maker, ``select-events`` and ``make-runs``). The distributed layer is still
+to come (ROADMAP.md, queue A). Entry points run on the card
+(``device="cuda"``) unless the caller asks for the CPU.
 
 Import rule: this package imports ``torch`` and ``numpy`` and NEVER ``jax``,
 nor ``gpras_tpu`` (whose ``__init__`` imports jax). The machine that runs the

@@ -5,12 +5,13 @@ host).
 Usage:
     python -m gpras_tpu_torch run <config.json>          # end-to-end pipeline
     python -m gpras_tpu_torch cv <config.json> <sweep>   # kernels|modes|inducing|optimizers
+    python -m gpras_tpu_torch select-events <sst.pq> <out.stac.json> [...]
+    python -m gpras_tpu_torch make-runs <settings.json>
     python -m gpras_tpu_torch predict <model.npz> <in.npz> <out.npz> \
         --hf-pre <hf.npz> --lf-pre <lf.npz>        # serve saved artifacts
     python -m gpras_tpu_torch describe-config            # config field reference
 
-The JAX package's ``select-events`` and ``make-runs`` (the run-generation
-tooling) are not in the port yet.
+``make-runs`` writes text and DSS files on the host and takes no ``--device``.
 """
 
 from __future__ import annotations
@@ -38,6 +39,19 @@ def main(argv: list[str] | None = None) -> int:
     cv_p.add_argument("config")
     cv_p.add_argument("sweep", choices=["kernels", "modes", "inducing", "optimizers"])
     add_device(cv_p)
+
+    sel_p = sub.add_parser("select-events", help="select train/test storms from SST parquet")
+    sel_p.add_argument("parquet")
+    sel_p.add_argument("out_stac")
+    sel_p.add_argument("--n-train", type=int, default=35)
+    sel_p.add_argument("--n-test", type=int, default=14)
+    sel_p.add_argument("--target-rps", default="2,5,10,25,50,100,200,500,1000,2000")
+    sel_p.add_argument("--s3-prefix", default="s3://events")
+    sel_p.add_argument("--test-rp-range", default="5,2000")
+    add_device(sel_p)
+
+    mk_p = sub.add_parser("make-runs", help="generate HEC-RAS runs for selected events")
+    mk_p.add_argument("settings")
 
     pr_p = sub.add_parser(
         "predict", help="serve predictions from saved artifacts")
@@ -71,6 +85,21 @@ def main(argv: list[str] | None = None) -> int:
         {"kernels": cv.run_kernels, "modes": cv.run_spatial_modes,
          "inducing": cv.run_inducing_points,
          "optimizers": cv.run_optimization_method}[args.sweep](args.config, args.device)
+    elif args.cmd == "select-events":
+        from gpras_tpu_torch.pipeline.event_selection import EventSelection, write_events_stac
+
+        rp_range = [float(v) for v in args.test_rp_range.split(",")]
+        sel = EventSelection(args.parquet, test_rp_range=rp_range, device=args.device)
+        storms, _ = sel.run_selection(
+            args.n_train, args.n_test,
+            [float(v) for v in args.target_rps.split(",")])
+        write_events_stac(storms, args.s3_prefix, args.out_stac)
+        print(f"wrote {args.out_stac}")
+    elif args.cmd == "make-runs":
+        from gpras_tpu_torch.pipeline.run_maker import make_runs_from_selected_events
+
+        manifest = make_runs_from_selected_events(args.settings)
+        print(f"created {len(manifest)} runs")
     elif args.cmd == "predict":
         import numpy as np
 

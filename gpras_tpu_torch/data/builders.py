@@ -27,7 +27,8 @@ A copy of ``gpras_tpu/data/builders.py`` (host numpy code), with one change:
 ``PseudoSurfaceDataBuilder`` takes a ``device`` for the port's fluvial
 ``GPRAS`` and preprocessors it loads, so its nested estimate runs there. The
 pipeline constructs a builder only when the parquet DB is missing, so a
-replay never imports this module (nor h5py, which ``ras_model`` needs).
+replay never imports this module; it imports without h5py, which
+``ras_model`` imports where it first reads an HDF file.
 """
 
 from __future__ import annotations

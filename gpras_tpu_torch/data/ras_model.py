@@ -1,7 +1,10 @@
-"""HEC-RAS model handle: read plan/geometry HDF5s and the project's files.
+"""HEC-RAS model handle: read plan/geometry HDF5s, mutate the project.
 
-The read side of ``gpras_tpu/data/ras_model.py``, copied (the port may not
-import the JAX package, whose ``__init__`` imports jax).
+A copy of ``gpras_tpu/data/ras_model.py`` (the port may not import the JAX
+package, whose ``__init__`` imports jax), with one change: h5py is imported
+where an HDF file is first read or written, not with the module, so the
+project's text files (the .prj, flow and plan files) and every module that
+imports ``RasModel`` work where h5py is not installed.
 
 Capability parity with the reference ``RasModel`` (gpras/ras/model.py:28-207),
 which subclasses hecstac's STAC item and reads HDF through rashdf. Neither
@@ -15,23 +18,27 @@ real HEC-RAS HDF layout:
   Surface Area | Cells FacePoint Indexes | FacePoints Coordinate}
 - precip:   /Event Conditions/Meteorology/Precipitation (attrs + Values/Timestamp)
 
-The reference's run-creation methods (new plans and flow files, .prj
-registration, suffix increments, text patching; gpras/ras/model.py:31-94 and
-183-207) are not in the port yet.
+Model mutation (append plans/flows, .prj registration, suffix increments,
+encoding/newline-preserving text patching) mirrors gpras/ras/model.py:31-94 and
+183-207.
 """
 
 from __future__ import annotations
 
 import json
+import shutil
 from functools import cached_property
 from pathlib import Path
-from typing import Any
+from typing import TYPE_CHECKING, Any
 
-import h5py
 import numpy as np
 import pandas as pd
 
 from gpras_tpu_torch.data.geometry import CellMesh
+from gpras_tpu_torch.utils.file_utils import detect_file_properties, get_filename
+
+if TYPE_CHECKING:
+    import h5py
 
 RESULTS_TS_ROOT = "Results/Unsteady/Output/Output Blocks/Base Output/Unsteady Time Series"
 TIME_STAMP_PATH = f"{RESULTS_TS_ROOT}/Time Date Stamp"
@@ -55,6 +62,8 @@ class PlanHdf:
 
     @cached_property
     def _h5(self) -> h5py.File:
+        import h5py
+
         return h5py.File(self.path, "r")
 
     def get(self, key: str) -> h5py.Dataset:
@@ -158,6 +167,8 @@ class RasModel:
             for h in handles.values():
                 try:
                     areas = h._h5["Geometry/2D Flow Areas"]
+                    import h5py
+
                     lo = np.array([np.inf, np.inf])
                     hi = np.array([-np.inf, -np.inf])
                     found = False
@@ -378,7 +389,7 @@ class RasModel:
         """Precip raster attrs (reference gpras/ras/model.py:176-180)."""
         return self.plan_hdfs[plan].attrs(PRECIP_PATH)
 
-    # ------------------------------------------------------------ project files
+    # ----------------------------------------------------------------- mutation
 
     @property
     def plan_files(self) -> list[str]:
@@ -390,3 +401,87 @@ class RasModel:
     def unsteady_flow_files(self) -> list[str]:
         return [p for n, p in self.assets.items()
                 if n.split(".")[-1].startswith("u") and n.split(".")[-1][1:].isdigit()]
+
+    def increment_suffix(self, paths: list[str], suffix_letter: str) -> str:
+        """Next free pXX/uXX filename (reference gpras/ras/model.py:83-94)."""
+        used = set()
+        for p in paths:
+            suffix = get_filename(p).split(".")[-1]
+            assert suffix[0] == suffix_letter, f"Mismatched file types in {paths}"
+            used.add(int(suffix[1:]))
+        ind = 1
+        while ind in used:
+            ind += 1
+        return str(self.model_root_dir / f"{self.id}.{suffix_letter}{str(ind).zfill(2)}")
+
+    def add_text_file(self, file) -> str:
+        """Write a flow/plan text file under the next suffix and register it in
+        the .prj (reference gpras/ras/model.py:63-81)."""
+        from gpras_tpu_torch.data.flow_file import UnsteadyFlowFile
+        from gpras_tpu_torch.data.plan_file import PlanFile
+
+        if isinstance(file, UnsteadyFlowFile):
+            line_base = "Unsteady File={}"
+            existing = self.unsteady_flow_files
+            letter = "u"
+        elif isinstance(file, PlanFile):
+            line_base = "Plan File={}"
+            existing = self.plan_files
+            letter = "p"
+        else:
+            raise TypeError(f"Cannot register {type(file)} in a RAS project")
+        new_path = self.increment_suffix(existing, letter)
+        file.to_file(new_path)
+        add_file_to_prj_file(str(self.prj_path), line_base.format(new_path.split(".")[-1]))
+        self.assets[Path(new_path).name] = new_path
+        return new_path
+
+    def make_new_plan(self, template_run: str, plan_attrs: dict[str, Any],
+                      boundary_conditions: list) -> tuple[str, str]:
+        """Clone a template plan (hdf + txt), patch attrs, write BC datasets,
+        register in the project (reference gpras/ras/model.py:31-61)."""
+        from gpras_tpu_torch.data.plan_file import update_hdf_attributes, update_hdf_data
+
+        src_path = self.assets[template_run]
+        new_run = self.increment_suffix(self.plan_files, "p")
+        dst_path = new_run + ".hdf"
+        src_txt = src_path[: -len(".hdf")] if src_path.endswith(".hdf") else src_path
+        shutil.copy(src_path, dst_path)
+        shutil.copy(src_txt, new_run)
+        update_hdf_attributes(dst_path, PLAN_INFO_PATH, plan_attrs["hdf"])
+        update_text_attributes(new_run, plan_attrs["txt"])
+        add_file_to_prj_file(str(self.prj_path), f"Plan File={new_run.split('.')[-1]}")
+        for bc in boundary_conditions:
+            update_hdf_data(dst_path, bc.path, bc.data)
+        self.assets[Path(dst_path).name] = dst_path
+        self.assets[Path(new_run).name] = new_run
+        return dst_path, new_run
+
+
+def add_file_to_prj_file(prj_path: str, file_row: str) -> None:
+    """Insert a 'Plan File=pXX'-style row after the last row with the same key,
+    preserving encoding and newline convention (reference gpras/ras/model.py:183-192)."""
+    encoding, newline = detect_file_properties(prj_path)
+    with open(prj_path, encoding=encoding) as f:
+        lines = f.readlines()
+    key = file_row.split("=")[0]
+    last = max((i for i, line in enumerate(lines) if line.startswith(key)),
+               default=len(lines) - 1)
+    lines.insert(last + 1, file_row + "\n")
+    with open(prj_path, "w", encoding=encoding, newline=newline) as f:
+        f.writelines(lines)
+
+
+def update_text_attributes(txt_path: str, attrs: dict[str, str]) -> None:
+    """Patch key=value rows in a RAS text file in place, preserving encoding and
+    newlines (reference gpras/ras/model.py:195-207)."""
+    encoding, newline = detect_file_properties(txt_path)
+    with open(txt_path, encoding=encoding) as f:
+        lines = f.readlines()
+    for ind, line in enumerate(lines):
+        # key = text before the FIRST '=' (values may contain '=')
+        key = line.rstrip("\n").split("=", 1)[0]
+        if "=" in line and key in attrs:
+            lines[ind] = f"{key}={attrs[key]}\n"
+    with open(txt_path, "w", encoding=encoding, newline=newline) as f:
+        f.writelines(lines)

@@ -1,4 +1,4 @@
-"""Config-driven orchestration: the pipeline and cross-validation."""
+"""Config-driven orchestration: pipeline, cross-validation, event tooling."""
 
 import sys
 import types

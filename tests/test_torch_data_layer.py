@@ -367,9 +367,20 @@ def test_ras_model_stac_round_trip_matches(project, tmp_path):
 
 
 def test_port_has_the_read_side_only():
-    """The run-creation methods are not in the port yet, and not stubbed."""
+    """The port had only RasModel's read side until the run-generation
+    tooling; now both packages have the run-creation methods, with the same
+    signatures (tests/test_torch_run_tooling.py holds them to each other)."""
+    import inspect
+
+    from gpras_tpu.data import ras_model as jrm
+    from gpras_tpu_torch.data import ras_model as trm
+
     for name in ("increment_suffix", "add_text_file", "make_new_plan"):
-        assert hasattr(JRasModel, name) and not hasattr(TRasModel, name)
+        assert hasattr(JRasModel, name) and hasattr(TRasModel, name)
+        assert inspect.signature(getattr(TRasModel, name)) == \
+            inspect.signature(getattr(JRasModel, name))
+    for name in ("add_file_to_prj_file", "update_text_attributes"):
+        assert inspect.signature(getattr(trm, name)) == inspect.signature(getattr(jrm, name))
 
 
 # ---------------------------------------------------------------------- native

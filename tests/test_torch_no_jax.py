@@ -8,7 +8,9 @@ an ``HmsPreProcessor``, computes an event's metrics, imports
 ``gpras_tpu_torch.accuracy``, replays a parquet DB through
 ``python -m gpras_tpu_torch run`` (``__main__.main``), and checks that
 neither ``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
-which runs on that machine too, imports neither."""
+which runs on that machine too, imports neither. Two more fresh interpreters
+have no h5py: one imports ``data/ras_model`` and ``data/builders``, the other
+runs the smoke's run-generation phase (``select-events``, ``make-runs``)."""
 
 import ast
 import os
@@ -118,6 +120,93 @@ def test_port_runs_without_importing_jax():
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert "NO_JAX_OK" in proc.stdout
+
+
+#: F1: ras_model imported h5py with the module, and every module that imports
+#: RasModel failed without it; now h5py is imported where an HDF is first read
+NO_H5PY_SCRIPT = r"""
+import sys
+sys.modules["h5py"] = None
+import pathlib, tempfile
+import gpras_tpu_torch.data.builders
+from gpras_tpu_torch.data.ras_model import PlanHdf, RasModel
+root = pathlib.Path(tempfile.mkdtemp())
+(root / "m.prj").write_text("Proj Title=m\nPlan File=p01\n")
+(root / "m.p01").write_text("Plan Title=a\n")
+(root / "m.p01.hdf").write_bytes(b"")
+model = RasModel(root / "m.prj")
+assert [pathlib.Path(p).name for p in model.plan_files] == ["m.p01"]
+assert pathlib.Path(model.increment_suffix(model.plan_files, "p")).name == "m.p02"
+try:
+    PlanHdf(root / "m.p01.hdf").attrs("Plan Data/Plan Information")
+except ImportError:
+    print("NO_H5PY_OK")
+"""
+
+
+def test_ras_model_and_builders_import_without_h5py():
+    """A fresh interpreter where h5py cannot be imported imports
+    ``data/ras_model`` and ``data/builders``, finds a project's text files,
+    and raises ImportError (nothing falls back) where an HDF is read."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", NO_H5PY_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "NO_H5PY_OK" in proc.stdout
+
+
+#: chip_smoke.py's phase 18 on the CPU, at 2,000 events: select-events
+#: (--device cpu) and a precip-less make-runs through the port's CLI
+TOOLING_SCRIPT = r"""
+import sys, time
+for name in ("h5py", "matplotlib"):
+    sys.modules[name] = None
+import pathlib, tempfile
+import torch
+torch.set_num_threads(1)
+
+
+class Event:  # the phase times its PCAs with CUDA events
+    def __init__(self, enable_timing=False):
+        self.t = 0.0
+
+    def record(self):
+        self.t = time.perf_counter()
+
+    def synchronize(self):
+        pass
+
+    def elapsed_time(self, end):
+        return 1e3 * (end.t - self.t)
+
+
+torch.cuda.Event = Event
+for name in ("synchronize", "empty_cache", "reset_peak_memory_stats"):
+    setattr(torch.cuda, name, lambda *a, **k: None)
+torch.cuda.max_memory_allocated = lambda *a, **k: 0
+import chip_smoke
+chip_smoke.DEVICE = "cpu"
+chip_smoke.SST_EVENTS = 2000
+report = chip_smoke.phase_run_tooling(pathlib.Path(tempfile.mkdtemp()))
+assert report["runs"] == 49 and report["stac_equal_cpu"] and not report["imported"], report
+assert [p["device"] for p in report["pca"]] == ["cpu", "cpu"], report["pca"]
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpras_tpu"))
+assert not bad, bad
+print("TOOLING_OK")
+"""
+
+
+def test_run_tooling_runs_without_h5py_matplotlib_or_jax():
+    """The card's machine has no h5py, matplotlib or JAX: chip_smoke.py's
+    run-generation phase (select-events on a seeded catalog, make-runs for
+    its 49 storms on stand-in SST.dss files, the checks) passes on the CPU in
+    a fresh interpreter where h5py and matplotlib cannot be imported, and
+    imports neither jax nor the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", TOOLING_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-2000:]
+    assert "TOOLING_OK" in proc.stdout
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

@@ -381,8 +381,16 @@ def test_cli_run_and_describe_config(ras, capsys):
     summary = json.loads(capsys.readouterr().out)
     _close(summary["depth_rmse"], tsum["depth_rmse"])
     _same_tables(work / "metrics" / "performance_metrics.db", tcfg.metric_db_path)
-    with pytest.raises(SystemExit):
-        tmain(["select-events", "x.pq", "out.json"])  # not in the port yet
+    # the run-generation tooling is in the port's CLI too
+    from test_tooling import make_sst_parquet
+
+    make_sst_parquet(ras["root"] / "sst.pq", n_events=200)
+    stac = ras["root"] / "events.stac.json"
+    assert tmain(["select-events", str(ras["root"] / "sst.pq"), str(stac),
+                  "--n-train", "20", "--n-test", "6", "--target-rps", "2,5,10,25",
+                  "--test-rp-range", "1.2,50", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.strip() == f"wrote {stac}"
+    assert json.loads(stac.read_text())["properties"]["train_event_count"] == 20
 
 
 def test_replay_runs_without_h5py_and_matplotlib(ras, tmp_path):
