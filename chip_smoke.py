@@ -9,8 +9,9 @@ fit (Hutchinson at N = 49,152, CG at N = 65,536), the SVGP backend (fit and
 serve at N = 49,152; the archive-scale protocol at N = 2^20), the accuracy
 north stars, the metric suite, the pipeline's run path
 (``python -m gpras_tpu_torch run`` with the exact backend at N = 17,920 and
-16,384 cells) and the run-generation tooling (``select-events`` on a
-10,000-event SST catalog, ``make-runs`` for its 49 storms), through the entry
+16,384 cells), the run-generation tooling (``select-events`` on a
+10,000-event SST catalog, ``make-runs`` for its 49 storms) and the
+distributed layer over NCCL at world size 1, through the entry
 points a user calls, and checks every CUDA kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
@@ -109,6 +110,14 @@ points a user calls, and checks every CUDA kernel on those paths:
    not there); held to 49 flow files and plans registered in the .prj, each
    read back with its event's record window, and the manifest's 35 / 14
    split through the pipeline's event-plan reader; no kernel runs here
+19. the distributed layer (gpras_tpu_torch/parallel) over NCCL at world
+   size 1 (the machine has one card): GPRAS.fit(mesh="auto") through the
+   Hutchinson engine at N = 49,152 (2 modes, 2 Adam steps) and the CG
+   engine at N = 65,536 (1 mode, 2 steps: B2 on every mbcg iteration),
+   held to the one-card engines; the 2-D layout on a (1, 1) mesh against
+   the 1-D one at N = 8,192; sharded prediction, PCA and one SVGP step
+   against their one-card paths; B2 is also checked and timed at the
+   distributed CG shape in phase 2
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -218,6 +227,13 @@ SST_PCA_RTOL = 1e-10  # the card's float64 PCAs vs pca_fit_reference, x max|want
 # the base-flow BCs of tests/data/cedar_basin.u01 (bc_<element>_base) and
 # each one's share of the event's inflow in the stand-in records
 SST_ELEMENTS = {"cedar_s120": 0.5, "cedar_s110": 0.3, "salado_s220": 0.2}
+# phase 19, the distributed layer over NCCL at world size 1 (one card): the
+# Hutchinson fit's modes and Adam steps (N = 49,152; the CG fit's at
+# N_COLD, 1 mode), and the 2-D layout's N
+DIST_BACKEND = "nccl"
+DIST_MODES = 2
+DIST_STEPS = 2
+N_2D = 8192
 
 
 def log(msg: str) -> None:
@@ -644,6 +660,22 @@ def phase_kernels():
           grids=lambda: fused_gram._kgrad_cuda(True, kernel, params, x, w, z, alpha, 1.3,
                                                1.0 / m))
     del params, x, v, w, z, alpha
+    torch.cuda.empty_cache()
+
+    # The distributed CG path (phase 19), Matern52 at N = 65,536 on one rank:
+    # B2 on the rank's rows (here all of them) against every point, R = 17
+    # (y and 16 probes), every mbcg iteration (parallel/pcg's matvec through
+    # exact_cg.kmv_cross), beside the library call on a Gram prebuilt by B1
+    # (17.2 GB)
+    params, x, _, v = inputs(N_COLD, N_COLD, R_CG)
+    check("kmv_dense", kernel, f"{N_COLD}x{N_COLD} R={R_CG}",
+          lambda: fused_gram.kmv_dense(kernel, params, x, v, x2=x),
+          fused_gram.kmv_plain(kernel, f64(params), x.double(), v.double(), x2=x.double()),
+          lambda: fused_gram.kmv_plain(kernel, params, x, v, x2=x),
+          kmv_work(N_COLD, N_COLD, R_CG, False),
+          library=lambda: prebuilt_matmul(kernel, params, x, x, None, v),
+          grids=lambda: fused_gram._kmv_dense_cuda(kernel, params, x, v, x, None))
+    del params, x, v
     torch.cuda.empty_cache()
 
     # The exact accuracy path (phase 15), Matern52 at N = 32,768: B1 (the
@@ -2668,6 +2700,239 @@ def phase_run_tooling(out: Path):
             "imported": loaded}
 
 
+def phase_distributed(report, out: Path):
+    """19. The distributed layer (gpras_tpu_torch/parallel) over NCCL at world
+    size 1: the card's machine has one H100, and NCCL puts one rank on a
+    card, so every entry point runs as one rank of a one-rank group, against
+    its one-card path. Multi-rank agreement is the CPU tests' (8 gloo ranks
+    against the JAX package's 8 virtual devices).
+
+    (a) GPRAS.fit(mesh="auto") at N = 49,152 (phase 5's data, 2 modes, 2
+        Adam steps): a (1,) mesh, the Hutchinson engine (pexact); the first
+        step's loss against the float64 dense NLML of the same formula and
+        the one-card Hutchinson engine's (B1 forward), at phase 6's limit;
+        its gradient against the one-card engine's (B5), the same probes;
+    (b) GPRAS.fit(mesh="auto") at N = 65,536 (1 mode, 2 Adam steps): the CG
+        engine (pcg), whose matvec is B2 on the rank's rows; B2 must launch;
+        the first evaluation's quad and log-determinant against the one-card
+        CG engine's (B3 matvecs) on the same draws, at phase 8's limits;
+    (c) make_dist_nlml on a (1, 1) ("i", "j") mesh, layout "2d", against
+        layout "1d" at N = 8,192: value and gradient to 1e-5;
+    (d) sharded_predict against GPRAS.predict (bit for bit), ppca_fit
+        against eof/pca (float64, 1e-10 x max), one psvgp step against the
+        one-card step (the JAX package's psvgp test limits).
+
+    Each piece's launches are counted from zeroed counters around its main
+    path only (the comparisons run after the read)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from gpras_tpu_torch import GPRAS
+    from gpras_tpu_torch.eof.pca import pca_fit
+    from gpras_tpu_torch.fit.optimizers import value_and_grad
+    from gpras_tpu_torch.gp import exact as exact_gp
+    from gpras_tpu_torch.gp import exact_cg, exact_stochastic, svgp
+    from gpras_tpu_torch.gp.priors import log_prior
+    from gpras_tpu_torch.parallel import make_mesh, pcg, pexact
+    from gpras_tpu_torch.parallel.ppca import ppca_fit
+    from gpras_tpu_torch.parallel.ppredict import sharded_predict
+    from gpras_tpu_torch.parallel.psvgp import make_dp_minibatch_step, shard_batch
+
+    store = Path(tempfile.mkdtemp(dir=out)) / "store"
+    dist.init_process_group(DIST_BACKEND, init_method=f"file://{store}", rank=0, world_size=1)
+    try:
+        if dist.get_backend() != DIST_BACKEND:
+            raise AssertionError(f"process group backend {dist.get_backend()}")
+        pieces, launches = {}, dict.fromkeys(counters(), 0)
+
+        def timed(name, fn):
+            """``fn()`` with the counters zeroed before and read after, its
+            seconds (host clock to a synchronize) and peak device memory."""
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            zero_counters()
+            t0 = time.perf_counter()
+            result = fn()
+            torch.cuda.synchronize()
+            got = read_counters()
+            pieces[name] = {"s": time.perf_counter() - t0,
+                            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                            "launches": got}
+            for k, v in got.items():
+                launches[k] += v
+            log(f"[distributed] {name}: {pieces[name]['s']:.3f} s, peak device memory "
+                f"{pieces[name]['peak_gb']:.3f} GB, launches {got}")
+            return result
+
+        def flat_grads(g):
+            return torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
+
+        # (a) the Hutchinson engine through GPRAS.fit(mesh="auto")
+        x_np, y_np, params_np = training_set()
+        model = GPRAS("Matern52", model_type="exact", device=DEVICE)
+        timed("a_hutchinson_fit", lambda: model.fit(
+            x_np, y_np[:, :DIST_MODES], mesh="auto", optimization_method="adam",
+            learning_rate=0.02, max_iter=DIST_STEPS))
+        info = model.fit_info
+        losses = info["losses"][:, :DIST_STEPS].tolist()
+        if info["dist_engine"] != "hutchinson" or info["dist_mesh_shape"] != (1,) or \
+                not all(math.isfinite(v) for r in losses for v in r):
+            raise AssertionError(f"(a): engine {info['dist_engine']}, mesh "
+                                 f"{info['dist_mesh_shape']}, losses {losses}")
+        x, y0 = model.x, model.y[:, 0].contiguous()
+        p0 = exact_gp.init_params("Matern52", x)
+        z = exact_stochastic.rademacher_probes(x.shape[0], M, device=DEVICE)
+        one = exact_stochastic.make_hutchinson_training_loss("Matern52", fused_gram=True)
+        loss_one, g_one = value_and_grad(lambda p: one(p, x, y0, z), p0)
+        mesh1 = make_mesh()
+        dnlml = pexact.make_dist_nlml_stochastic(mesh1, "Matern52",
+                                                 b=GPRAS._dist_block(x.shape[0], mesh1),
+                                                 probes=M)
+        loss_d, g_d = value_and_grad(lambda p: dnlml(p, x, y0, z) - log_prior(p), p0)
+        del model
+        torch.cuda.empty_cache()
+        loss64 = dense_loss64(p0, x, y0)
+        first = losses[0][0]
+        grad_err = float((flat_grads(g_d) - flat_grads(g_one)).abs().max())
+        grad_scale = float(flat_grads(g_one).abs().max())
+        a = {"losses": losses, "first_loss": first, "loss_dist_again": float(loss_d),
+             "loss_one_card": float(loss_one), "loss64": loss64,
+             "rel_err_64": abs(first - loss64) / abs(loss64),
+             "rel_err_one_card": abs(first - float(loss_one)) / abs(loss64),
+             "grad_max_abs_err": grad_err, "grad_scale": grad_scale}
+        log(f"[distributed] (a) Hutchinson, mesh (1,), N={x.shape[0]}: first loss {first:.6f}; "
+            f"float64 dense {loss64:.6f} (rel {a['rel_err_64']:.3e}), one-card engine "
+            f"{float(loss_one):.6f} (rel {a['rel_err_one_card']:.3e}; limit {LOSS_TOL}); "
+            f"gradient vs the one-card engine's: max_abs_err {grad_err:.3e} (limit 1e-3 x "
+            f"{grad_scale:.3e})")
+        if not (a["rel_err_64"] <= LOSS_TOL and a["rel_err_one_card"] <= LOSS_TOL
+                and grad_err <= 1e-3 * grad_scale):
+            raise AssertionError("(a) distributed Hutchinson disagrees with the one-card engine")
+        del x, y0, z, one, dnlml, g_one, g_d
+        torch.cuda.empty_cache()
+
+        # (b) the CG engine through GPRAS.fit(mesh="auto"): B2 every iteration
+        x_np, y_np, _ = training_set(N_COLD)
+        model = GPRAS("Matern52", model_type="exact", device=DEVICE)
+        timed("b_cg_fit", lambda: model.fit(
+            x_np, y_np[:, :1], mesh="auto", optimization_method="adam", learning_rate=0.02,
+            max_iter=DIST_STEPS))
+        info = model.fit_info
+        losses = info["losses"][:, :DIST_STEPS].tolist()
+        if info["dist_engine"] != "cg" or info["dist_mesh_shape"] != (1,) or \
+                pieces["b_cg_fit"]["launches"]["kmv_dense"] == 0 or \
+                not all(math.isfinite(v) for r in losses for v in r):
+            raise AssertionError(f"(b): engine {info['dist_engine']}, mesh "
+                                 f"{info['dist_mesh_shape']}, launches "
+                                 f"{pieces['b_cg_fit']['launches']}, losses {losses}")
+        x, y0 = model.x, model.y[:, 0].contiguous()
+        p0 = exact_gp.init_params("Matern52", x)
+        draws = exact_cg.precond_probes(x.shape[0], 64, M, device=DEVICE)
+        with torch.no_grad():
+            _, alpha_d, _, _, terms_d, logdet_p_d = pcg._dist_cg_solves(
+                mesh1, "Matern52", p0, x, y0, draws, 32, 64, 1024, "i")
+            value_1, alpha_1, _, _, terms_1, logdet_p_1, rel_1 = exact_cg._cg_solves(
+                "Matern52", p0, x, y0, draws, 32, 64, None, 4096)
+            noise = exact_cg._noise(p0, torch.float32)
+            resid = y0 - exact_cg.kmv("Matern52", p0, x, alpha_d[:, None].contiguous(),
+                                      noise)[:, 0]
+        rho = float(torch.linalg.vector_norm(resid) / torch.linalg.vector_norm(y0))
+        quad_d, quad_1 = 0.5 * float(torch.dot(y0, alpha_d)), 0.5 * float(torch.dot(y0, alpha_1))
+        logdet_d = float(logdet_p_d) + float(terms_d.mean())
+        logdet_1 = float(logdet_p_1) + float(terms_1.mean())
+        se = float(terms_1.double().std()) / math.sqrt(M)
+        quad_limit = 1e-4 * abs(quad_1) + (
+            0.0 if rho <= 1e-4 else 0.5 * float(torch.dot(resid, resid)) / float(noise))
+        first = losses[0][0]  # the training loss: the NLML minus the log prior
+        loss_1 = float(value_1) - float(log_prior(p0))
+        b = {"losses": losses, "first_loss": first, "one_card_loss": loss_1,
+             "quad": quad_d, "quad_one_card": quad_1, "quad_limit": quad_limit,
+             "y_rel_residual": rho, "logdet": logdet_d, "logdet_one_card": logdet_1,
+             "slq_se": se, "kmv_dense_launches": pieces["b_cg_fit"]["launches"]["kmv_dense"]}
+        log(f"[distributed] (b) CG, mesh (1,), N={x.shape[0]}: first loss {first:.6f}, one-card "
+            f"CG (B3) {loss_1:.6f}; quad {quad_d:.6f} vs {quad_1:.6f} (limit "
+            f"{quad_limit:.3e}; y's true relative residual {rho:.3e}), logdet {logdet_d:.4f} vs "
+            f"{logdet_1:.4f} (limit 4 SE = {4 * se:.4f}); B2 launches "
+            f"{b['kmv_dense_launches']}")
+        if not (abs(quad_d - quad_1) <= quad_limit and abs(logdet_d - logdet_1) <= 4 * se
+                and abs(first - loss_1) <= quad_limit + 2 * se):
+            raise AssertionError("(b) distributed CG disagrees with the one-card CG engine")
+        del model, x, y0, draws, alpha_d, alpha_1, resid
+        torch.cuda.empty_cache()
+
+        # (c) the 2-D engine on a (1, 1) mesh against the 1-D one
+        x_np, y_np, _ = training_set(N_2D)
+        x = torch.as_tensor(x_np, device=DEVICE)
+        y0 = torch.as_tensor(y_np[:, 0], device=DEVICE).contiguous()
+        p0 = exact_gp.init_params("Matern52", x)
+        mesh2 = make_mesh((1, 1), ("i", "j"))
+        nlml_2d = pexact.make_dist_nlml(mesh2, "Matern52", layout="2d")
+        nlml_1d = pexact.make_dist_nlml(mesh1, "Matern52", layout="1d")
+        v2, g2 = timed("c_2d_value_and_grad",
+                       lambda: value_and_grad(lambda p: nlml_2d(p, x, y0), p0))
+        v1, g1 = value_and_grad(lambda p: nlml_1d(p, x, y0), p0)
+        c = {"value_2d": float(v2), "value_1d": float(v1),
+             "value_rel_err": abs(float(v2) - float(v1)) / abs(float(v1)),
+             "grad_rel_err": float((flat_grads(g2) - flat_grads(g1)).abs().max()
+                                   / flat_grads(g1).abs().max())}
+        log(f"[distributed] (c) layout 2d on a (1, 1) mesh vs 1d, N={N_2D}: value "
+            f"{float(v2):.6f} vs {float(v1):.6f} (rel {c['value_rel_err']:.3e}), gradient rel "
+            f"{c['grad_rel_err']:.3e} (limit 1e-5 each)")
+        if not (c["value_rel_err"] <= 1e-5 and c["grad_rel_err"] <= 1e-5):
+            raise AssertionError("(c) the 2-D layout disagrees with the 1-D one")
+
+        # (d) sharded_predict, ppca, one data-parallel SVGP step
+        served = GPRAS("Matern52", model_type="exact", device=DEVICE)
+        served.x, served.y = x[:4096].contiguous(), torch.as_tensor(y_np[:4096], device=DEVICE)
+        served.params = {k: torch.as_tensor(v, device=DEVICE) for k, v in params_np.items()}
+        xq = np.random.default_rng(19).normal(size=(256, D)).astype(np.float32)
+        want = served.predict(xq)
+        got = timed("d_sharded_predict", lambda: sharded_predict(mesh1, served, xq))
+        predict_equal = all(np.array_equal(g, w) for g, w in zip(got, want))
+        cells = torch.as_tensor(np.random.default_rng(20).normal(size=(64, 4096)), device=DEVICE)
+        cells = cells - cells.mean(dim=0)
+        comps_d, expl_d = timed("d_ppca", lambda: ppca_fit(mesh1, cells, 8))
+        comps_1, expl_1 = pca_fit(cells, 8)
+        pca_err = float((comps_d - comps_1).abs().max())
+        pca_scale = float(comps_1.abs().max())
+        xb = x[:1024].contiguous()
+        yb = y0[:1024].contiguous()
+        sp = svgp.init_params("Matern52", xb, xb[:64], noise_variance=0.3)
+        init, step = make_dp_minibatch_step(mesh1, "Matern52", n_total=N_2D, learning_rate=0.01,
+                                            axis="i")
+        xs, ys = shard_batch(mesh1, xb, yb, axis="i")
+        p_dp, _, loss_dp = timed("d_psvgp_step", lambda: step(sp, init(sp), xs, ys))
+        p_1, _, loss_1 = svgp._step_fn("Matern52", 0.01, None)(sp, svgp._adam_init(sp), xb, yb,
+                                                               N_2D)
+        svgp_loss_rel = abs(float(loss_dp) - float(loss_1)) / abs(float(loss_1))
+        svgp_param_ok = all(bool(torch.allclose(p_dp[k], p_1[k], rtol=2e-4, atol=2e-6))
+                            for k in p_1)
+        d = {"predict_bit_equal": predict_equal, "ppca_max_abs_err": pca_err,
+             "ppca_scale": pca_scale,
+             "ppca_explained_rel": float(((expl_d - expl_1).abs() / expl_1.abs()).max()),
+             "psvgp_loss_rel": svgp_loss_rel, "psvgp_params_within": svgp_param_ok}
+        log(f"[distributed] (d) sharded_predict bit for bit: {predict_equal}; ppca_fit vs "
+            f"pca_fit: max_abs_err {pca_err:.3e} (limit 1e-10 x {pca_scale:.3e}), explained rel "
+            f"{d['ppca_explained_rel']:.3e}; psvgp step vs one-card: loss rel "
+            f"{svgp_loss_rel:.3e} (limit 1e-5), parameters within rtol 2e-4 / atol 2e-6: "
+            f"{svgp_param_ok}")
+        if not (predict_equal and pca_err <= 1e-10 * pca_scale and d["ppca_explained_rel"] <= 1e-10
+                and svgp_loss_rel <= 1e-5 and svgp_param_ok):
+            raise AssertionError("(d) a distributed entry point disagrees with its one-card path")
+        b2 = report["kmv_dense"][("Matern52", f"{N_COLD}x{N_COLD} R={R_CG}")]
+        log(f"[distributed] B2 at the distributed CG shape ({N_COLD}x{N_COLD}, R={R_CG}): "
+            f"{b2['ms']:.3f} ms a call (grids alone {b2['grids_ms']:.3f} ms), bound "
+            f"{b2['bound_ms']:.3f} ms ({b2['bound_by']}), plain {b2['plain_ms']:.3f} ms, "
+            f"torch.matmul on a B1-built Gram {b2['library_ms']:.3f} ms")
+    finally:
+        dist.destroy_process_group()
+    return {"backend": DIST_BACKEND, "pieces": pieces, "launches": launches, "hutchinson": a,
+            "cg": b, "layout_2d": c, "rest": d, "b2_at_dist_cg_shape": b2}
+
+
 def main() -> int:
     import torch
 
@@ -2712,6 +2977,8 @@ def main() -> int:
     pipe = phase_pipeline(out)
     torch.cuda.empty_cache()
     tooling = phase_run_tooling(out)
+    torch.cuda.empty_cache()
+    distributed = phase_distributed(report, out)
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -2757,6 +3024,8 @@ def main() -> int:
         kernels[-1]["launches_accuracy_exact"] = acc["launches"][name]
         # wrapper calls in phase 17's cold pipeline run (N = 17,920)
         kernels[-1]["launches_pipeline"] = pipe["cold"]["launches"][name]
+        # wrapper calls on phase 19's distributed paths (NCCL, world size 1)
+        kernels[-1]["launches_distributed"] = distributed["launches"][name]
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
@@ -2767,6 +3036,7 @@ def main() -> int:
     log(json.dumps({"accuracy": acc, "metrics_hms": metrics_hms}))
     log(json.dumps({"pipeline": pipe}))
     log(json.dumps({"run_tooling": tooling}))
+    log(json.dumps({"distributed": distributed}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))

@@ -27,8 +27,9 @@ custom-gradient NLML up to ``SUPER_THRESHOLD`` points (the reference's
 Hutchinson stochastic-trace engine (``gp/exact_stochastic.py``, kernels
 B1, B4 and B5) up to ``CG_THRESHOLD``, and above it the matrix-free CG
 engine (``gp/exact_cg.make_cg_training_loss``: mbcg over kernel B3, SLQ, the
-backward through B5), which holds no (N, N) buffer. A distributed fit
-(``mesh=``) is not ported yet and raises (ROADMAP.md item A6).
+backward through B5), which holds no (N, N) buffer. ``fit(..., mesh=...)``
+runs the exact fit over the ranks of a ``torch.distributed`` mesh through
+``parallel/`` (``_fit_distributed``: the same ladder, scaled by the mesh).
 
 The posterior cache follows the reference's ladder: a dense Cholesky factor
 per mode up to ``SUPER_THRESHOLD`` training points, the matrix-free CG engine
@@ -60,6 +61,11 @@ from gpras_tpu_torch.utils.serialization import load_artifact, save_artifact
 Tensor = torch.Tensor
 
 KernelType = K.KernelName
+OptimizerType = Literal[
+    "two-stage", "three-stage", "adam", "adadelta", "L-BFGS-B",
+    "stochastic", "diffential_evolution", "differential_evolution",
+]
+InductionInitializerType = Literal["kmeans", "grid"]
 ModelBackendType = Literal["sgpr", "svgp", "exact"]
 
 
@@ -196,9 +202,6 @@ class GPRAS:
         if mesh is not None and self.model_type != "exact":
             raise ValueError("mesh-distributed fitting supports model_type='exact' (the "
                              "distributed engine ladder)")
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh-distributed fitting is not ported yet (ROADMAP.md item A6)")
         if optimization_method not in fitters.FITTERS:
             raise ValueError(f"Unknown optimizer {optimization_method!r}; expected one of "
                              f"{sorted(fitters.FITTERS)}")
@@ -252,6 +255,9 @@ class GPRAS:
             batched0 = {k: v.expand((p_modes,) + v.shape)
                         for k, v in self._init_params(inducing_initializer).items()}
 
+        if mesh is not None:
+            self._fit_distributed(mesh, batched0, optimization_method, opt_kwargs)
+            return
         if self.model_type == "svgp":
             self._fit_svgp(batched0, optimization_method, opt_kwargs)
             return
@@ -281,6 +287,138 @@ class GPRAS:
         if "evolution" not in optimization_method:
             # DE's "losses" are the final population's energies, not a history
             log_fit_losses(self.fit_info, name=f"GPRAS[{self.kernel_str}/{self.model_type}]")
+
+    @staticmethod
+    def _resolve_mesh(mesh: Any):
+        """A ``DeviceMesh`` passes through; ``"auto"`` builds the largest 2-D
+        mesh (axes "i", "j", di >= dj) over every rank of the initialized
+        default process group, 1-D ("i") when the world size has no such
+        split."""
+        import torch.distributed as dist
+        from torch.distributed.device_mesh import DeviceMesh
+
+        from gpras_tpu_torch.parallel.mesh import make_mesh
+
+        if isinstance(mesh, DeviceMesh):
+            return mesh
+        if mesh == "auto":
+            if not dist.is_initialized():
+                raise RuntimeError(
+                    "mesh='auto' needs an initialized torch.distributed process group: "
+                    "launch under torchrun, or call torch.distributed.init_process_group "
+                    "first")
+            n_dev = dist.get_world_size()
+            dj = int(math.floor(math.sqrt(n_dev)))
+            while dj > 1 and n_dev % dj:
+                dj -= 1
+            if dj > 1:
+                return make_mesh((n_dev // dj, dj), ("i", "j"))
+            return make_mesh((n_dev,), ("i",))
+        raise TypeError(f"mesh must be a torch.distributed DeviceMesh or 'auto', got {mesh!r}")
+
+    @staticmethod
+    def _dist_block(n: int, mesh: Any) -> int:
+        """Largest Cholesky block <= 128 dividing every per-axis local extent
+        (the pcholesky / pcholesky2d divisibility contract)."""
+        b = 128
+        for size in mesh.shape:
+            local = n // size
+            while b > 8 and local % b:
+                b //= 2
+        return b
+
+    def _fit_distributed(self, mesh: Any, batched0: dict[str, Tensor],
+                         optimization_method: str, opt_kwargs: dict[str, Any]) -> None:
+        """The exact GP fit over a mesh of ranks (``parallel/``), mode after
+        mode, every rank running this same call on the whole x and y.
+
+        Engine ladder (the single-card one scaled by the mesh): the dense
+        exact backward (``pexact.make_dist_nlml``) up to SUPER_THRESHOLD,
+        the Hutchinson backward (``make_dist_nlml_stochastic``) above it,
+        and the matrix-free CG engine (``pcg.make_dist_cg_nlml``) once N
+        exceeds CG_THRESHOLD * sqrt(ranks), the sharded Gram's aggregate
+        ceiling; CG shards rows over one axis, so a 2-D mesh is flattened.
+        The probes are drawn once (the single-card engine's fixed draws,
+        the same on every rank), so the objective is deterministic and
+        every optimizer applies. ``fit_info`` adds ``dist_engine`` and
+        ``dist_mesh_shape``; the fitted parameters are the same on every
+        rank."""
+        from gpras_tpu_torch.parallel.mesh import _index, make_mesh
+
+        mesh = self._resolve_mesh(mesh)
+        n = self.x.shape[0]
+        n_dev = math.prod(mesh.shape)
+        for ax, size in zip(mesh.mesh_dim_names, mesh.shape):
+            if n % size:
+                raise ValueError(f"N={n} must divide by mesh axis {ax!r}={size}")
+        engine = self.exact_engine
+        if engine == "auto":
+            if n > int(self.CG_THRESHOLD * math.sqrt(n_dev)):
+                engine = "cg"
+            elif n > self.SUPER_THRESHOLD:
+                engine = "hutchinson"
+            else:
+                engine = "dense"
+        elif engine == "lean":
+            engine = "dense"  # the panel-scan backward is single-card only
+        if engine == "cg":
+            from gpras_tpu_torch.parallel.pcg import make_dist_cg_nlml
+
+            if len(mesh.shape) > 1:
+                # the matrix-free engine shards rows over one axis: all ranks
+                # hold rows instead of repeating the solve over "j"
+                mesh = make_mesh((n_dev,), ("i",))
+            probes = int(opt_kwargs.pop("probes", 16))
+            rank = int(opt_kwargs.pop("precond_rank", 64))
+            _, dloss = make_dist_cg_nlml(mesh, self.kernel_str, probes=probes,
+                                         max_iters=int(opt_kwargs.pop("cg_iters", 32)),
+                                         precond_rank=rank)
+            opt_kwargs.pop("dist_block", None)
+            if rank > 0:
+                draws = exact_cg.precond_probes(n, rank, probes, dtype=self.dtype,
+                                                device=self.device)
+            else:
+                draws = exact_stochastic.rademacher_probes(n, probes, dtype=self.dtype,
+                                                           device=self.device)
+            nl = n // n_dev
+            r0 = _index(mesh, "i") * nl
+            x_local = self.x[r0:r0 + nl].contiguous()
+            loss = lambda p, y_i: dloss(p, x_local, y_i, draws)
+        else:
+            from gpras_tpu_torch.gp.priors import log_prior
+            from gpras_tpu_torch.parallel import pexact
+
+            b = int(opt_kwargs.pop("dist_block", 0)) or self._dist_block(n, mesh)
+            if engine == "hutchinson":
+                probes = int(opt_kwargs.pop("probes", 16))
+                dnlml = pexact.make_dist_nlml_stochastic(mesh, self.kernel_str, b=b,
+                                                         probes=probes)
+                z = exact_stochastic.rademacher_probes(n, probes, dtype=self.dtype,
+                                                       device=self.device)
+                loss = lambda p, y_i: dnlml(p, self.x, y_i, z) - log_prior(p)
+            elif engine == "dense":
+                dnlml = pexact.make_dist_nlml(mesh, self.kernel_str, b=b)
+                loss = lambda p, y_i: dnlml(p, self.x, y_i) - log_prior(p)
+            else:
+                raise ValueError(f"unknown distributed engine {engine!r}; "
+                                 "expected auto|dense|hutchinson|cg")
+        if self.dtype == torch.float32 and optimization_method in ("adam", "two-stage"):
+            opt_kwargs.setdefault("lower_bounds", {"log_noise_variance": math.log(1e-4)})
+            opt_kwargs.setdefault("reject_nonfinite", True)
+        fitter = fitters.FITTERS[optimization_method]
+        fitted, infos = [], []
+        for i in range(self.y.shape[1]):
+            y_i = self.y[:, i].contiguous()
+            p_i, info = fitter(lambda p, y_i=y_i: loss(p, y_i),
+                               {k: v[i].contiguous() for k, v in batched0.items()},
+                               **opt_kwargs)
+            fitted.append(p_i)
+            infos.append(info)
+        self.params = {k: torch.stack([p[k] for p in fitted]) for k in fitted[0]}
+        self.fit_info = {k: torch.stack([torch.as_tensor(info[k]) for info in infos])
+                         for k in infos[0]}
+        self.fit_info["dist_engine"] = engine
+        self.fit_info["dist_mesh_shape"] = tuple(mesh.shape)
 
     def _fit_svgp(self, batched0: dict[str, Tensor], optimization_method: str,
                   opt_kwargs: dict[str, Any]) -> None:

@@ -18,11 +18,13 @@ Tensor = torch.Tensor
 PRIOR_PARAM_NAMES = ("log_variance", "log_lengthscales", "log_noise_variance")
 
 
-def log_prior(params: dict[str, Tensor]) -> Tensor:
-    """Sum of Normal(0, 1) log-densities over the prior-carrying parameters."""
+def log_prior(params: dict[str, Tensor],
+              names: tuple[str, ...] = PRIOR_PARAM_NAMES) -> Tensor:
+    """Sum of Normal(0, 1) log-densities over the parameters of ``names``
+    that ``params`` holds."""
     ref = next(iter(params.values()))
     total = torch.zeros((), dtype=ref.dtype, device=ref.device)
-    for name in PRIOR_PARAM_NAMES:
+    for name in names:
         if name in params:
             eta = params[name]
             total = total + torch.sum(-0.5 * eta * eta - 0.5 * math.log(2.0 * math.pi))

@@ -140,15 +140,20 @@ def elbo(kernel: str, params: Params, x: Tensor, y: Tensor, n_total: int | Tenso
     ``n_total / batch``, so minibatch gradients estimate the full bound's
     without bias. At ``x.shape[0] == n_total`` this is the exact bound, at
     most SGPR's collapsed bound, with equality at the optimal q."""
+    scale = _data_scale(n_total, y.shape[0], y.dtype)
+    return scale * _expected_loglik(kernel, params, x, y) - kl_to_prior(params)
+
+
+def _expected_loglik(kernel: str, params: Params, x: Tensor, y: Tensor) -> Tensor:
+    """The bound's data term on a batch, unscaled: the sum over its points and
+    outputs of the closed-form Gaussian expected log-likelihood."""
     y2 = y[:, None] if y.ndim == 1 else y
-    b = y2.shape[0]
     sigma2 = torch.exp(params["log_noise_variance"])
     a = _whitened_projection(kernel, params, x)
     mean, var_f = _f_moments(params, a, K.kdiag(kernel, params, x))
-    # the closed-form Gaussian expected log-likelihood per point and output
     quad = (y2 - mean) ** 2 + var_f
     loglik = -0.5 * (math.log(2.0 * math.pi) + torch.log(sigma2)) - 0.5 * quad / sigma2
-    return _data_scale(n_total, b, y2.dtype) * torch.sum(loglik) - kl_to_prior(params)
+    return torch.sum(loglik)
 
 
 def training_loss(kernel: str, params: Params, x: Tensor, y: Tensor,
@@ -208,13 +213,25 @@ def natgrad_step(kernel: str, params: Params, x: Tensor, y: Tensor, n_total: int
     it lands on :func:`optimal_q` from any q. Runs without autograd, the
     outputs as one batch (the reference's ``jax.vmap``)."""
     y2 = y[:, None] if y.ndim == 1 else y
-    sigma2 = torch.exp(params["log_noise_variance"])
+    aat, ay = _natgrad_stats(kernel, params, x, y2)
+    return _natgrad_update(params, aat, ay, _data_scale(n_total, y2.shape[0], y2.dtype), lr)
+
+
+def _natgrad_stats(kernel: str, params: Params, x: Tensor, y2: Tensor) -> tuple[Tensor, Tensor]:
+    """The batch's sums behind a natural-gradient step: A A^T (M, M) and
+    A y (M, P), A = L^-1 k(Z, x)."""
     a = _whitened_projection(kernel, params, x)  # (M, B)
-    m = a.shape[0]
-    scale = _data_scale(n_total, y2.shape[0], y2.dtype)
-    g_mat = scale * (a @ a.T) / sigma2  # (M, M), shared across outputs
-    b_vec = scale * (a @ y2) / sigma2  # (M, P)
-    eye = _eye(m, a)
+    return a @ a.T, a @ y2
+
+
+def _natgrad_update(params: Params, aat: Tensor, ay: Tensor, scale, lr: float) -> Params:
+    """The natural-gradient step from the batch's sums (``_natgrad_stats``)
+    and the data scale n_total / B."""
+    sigma2 = torch.exp(params["log_noise_variance"])
+    m = aat.shape[0]
+    g_mat = scale * aat / sigma2  # (M, M), shared across outputs
+    b_vec = scale * ay / sigma2  # (M, P)
+    eye = _eye(m, aat)
     q_sqrt = q_sqrt_from_raw(params["q_raw"])  # (P, M, M)
     # S^{-1} = L^{-T} L^{-1}; lam1 = S^{-1} m, per output
     linv = linalg.solve_triangular(q_sqrt, eye, lower=True)

@@ -22,7 +22,8 @@ Tensor = torch.Tensor
 #: The reference's float32 feasibility envelope at N = 49,152 (its full-N cold
 #: fit converges at var/noise = 47); 50 is that operating point with margin.
 DEFAULT_RATIO_CAP = 50.0
-#: The cap certification halves down to before it gives up on a transfer.
+#: The default cap certification halves down to before it gives up on a
+#: transfer (``min_cap``).
 MIN_RATIO_CAP = 2.0
 
 
@@ -41,24 +42,25 @@ def certify_transfer(
     loss_fn: Callable[[dict[str, Tensor]], Any],
     params: dict[str, Tensor],
     ratio_cap: float = DEFAULT_RATIO_CAP,
+    min_cap: float = MIN_RATIO_CAP,
 ) -> tuple[dict[str, Tensor], dict[str, Any]]:
     """Clamp ``params`` into the feasibility envelope of ``loss_fn``: one
     forward evaluation at the clamped parameters certifies them; while the
-    loss is not finite the cap halves, down to ``MIN_RATIO_CAP``.
+    loss is not finite the cap halves, down to ``min_cap``.
 
     Returns ``(clamped_params, info)`` with ``info["feasible"]``,
     ``info["ratio_cap_used"]`` and ``info["cert_loss"]`` (NaN when
     infeasible)."""
     cap = float(ratio_cap)
     cert = float("nan")
-    while cap >= MIN_RATIO_CAP:
+    while cap >= min_cap:
         clamped = transfer_clamp(params, cap)
         with torch.no_grad():
             cert = float(loss_fn(clamped))
         if math.isfinite(cert):
             return clamped, {"feasible": True, "ratio_cap_used": cap, "cert_loss": cert}
         cap /= 2.0
-    return transfer_clamp(params, MIN_RATIO_CAP), {
+    return transfer_clamp(params, min_cap), {
         "feasible": False, "ratio_cap_used": cap * 2.0, "cert_loss": cert}
 
 
@@ -67,11 +69,12 @@ def certify_transfer_batched(
     params: dict[str, Tensor],
     fallback: dict[str, Tensor],
     ratio_cap: float = DEFAULT_RATIO_CAP,
+    min_cap: float = MIN_RATIO_CAP,
 ) -> tuple[dict[str, Tensor], dict[str, Any]]:
     """``certify_transfer`` per mode of a mode-batched parameter dict.
 
     ``loss_fn(p_i, i)`` is mode ``i``'s full-N loss; a mode whose transfer
-    stays infeasible down to ``MIN_RATIO_CAP`` takes its entry of ``fallback`` (the
+    stays infeasible down to ``min_cap`` takes its entry of ``fallback`` (the
     standard init). Returns ``(params, info)`` with per-mode
     ``info["ratio_caps"]``, ``info["cert_losses"]`` and
     ``info["fell_back_modes"]``."""
@@ -79,7 +82,8 @@ def certify_transfer_batched(
     out_modes, caps, certs, fell_back = [], [], [], []
     for i in range(n_modes):
         p_i = {k: v[i] for k, v in params.items()}
-        clamped, info = certify_transfer(lambda p: loss_fn(p, i), p_i, ratio_cap=ratio_cap)
+        clamped, info = certify_transfer(lambda p: loss_fn(p, i), p_i, ratio_cap=ratio_cap,
+                                         min_cap=min_cap)
         caps.append(info["ratio_cap_used"])
         certs.append(info["cert_loss"])
         if info["feasible"]:

@@ -338,11 +338,13 @@ def test_fit_warm_start_float32_matches_jax(tmp_path):
 def test_fit_refuses_what_is_not_ported():
     x, y = _data(64)
     # the CG engine is ported and fits (tests/test_torch_cg_train.py holds it
-    # to the reference step for step); the mesh-distributed fit is not
+    # to the reference step for step); the mesh-distributed fit is ported
+    # too (tests/test_torch_parallel_model.py) and, without a process group,
+    # says how to start one
     cg = TGPRAS("RBF", model_type="exact", exact_engine="cg", device="cpu")
     cg.fit(x, y, optimization_method="adam", max_iter=2)
     assert torch.isfinite(cg.fit_info["losses"]).all() and cg._engine() == "cg"
-    with pytest.raises(NotImplementedError, match="A6"):
+    with pytest.raises(RuntimeError, match="torchrun"):
         TGPRAS("RBF", model_type="exact", device="cpu").fit(x, y, mesh="auto")
     model = TGPRAS("RBF", model_type="exact", device="cpu")
     model.x = torch.zeros((60_000, 1))

@@ -10,7 +10,10 @@ an ``HmsPreProcessor``, computes an event's metrics, imports
 neither ``jax`` nor ``gpras_tpu`` was imported along the way. ``chip_smoke.py``,
 which runs on that machine too, imports neither. Two more fresh interpreters
 have no h5py: one imports ``data/ras_model`` and ``data/builders``, the other
-runs the smoke's run-generation phase (``select-events``, ``make-runs``)."""
+runs the smoke's run-generation phase (``select-events``, ``make-runs``). One
+more imports the distributed layer (``parallel/``) and the helpers its
+parity tests run on gloo ranks, and fits through each distributed engine at
+world size 1."""
 
 import ast
 import os
@@ -207,6 +210,43 @@ def test_run_tooling_runs_without_h5py_matplotlib_or_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:] + proc.stdout[-2000:]
     assert "TOOLING_OK" in proc.stdout
+
+
+#: the distributed layer and the helpers its parity tests start on gloo ranks
+#: (tests/torch_dist.py, tests/torch_dist_cases.py), driven once at world
+#: size 1: a distributed fit through GPRAS.fit(mesh="auto") on each engine
+PARALLEL_SCRIPT = r"""
+import sys, pathlib, tempfile
+import numpy as np, torch
+import torch.distributed as dist
+torch.set_num_threads(1)
+sys.path.insert(0, "tests")
+import torch_dist, torch_dist_cases
+from gpras_tpu_torch.parallel import hybrid, mesh, pcg, pcholesky, pcholesky2d, pexact, pfit
+from gpras_tpu_torch.parallel import pgram, ppca, ppredict, psvgp
+from gpras_tpu_torch import GPRAS
+store = pathlib.Path(tempfile.mkdtemp()) / "store"
+dist.init_process_group("gloo", init_method=f"file://{store}", rank=0, world_size=1)
+rng = np.random.default_rng(0)
+x, y = rng.normal(size=(64, 2)), rng.normal(size=(64, 1))
+for engine, kw in (("dense", {}), ("hutchinson", {"probes": 4}),
+                   ("cg", {"probes": 4, "cg_iters": 8, "precond_rank": 4})):
+    m = GPRAS("RBF", model_type="exact", exact_engine=engine, dtype=torch.float64, device="cpu")
+    m.fit(x, y, mesh="auto", optimization_method="adam", max_iter=2, **kw)
+    assert m.fit_info["dist_engine"] == engine and m.fit_info["dist_mesh_shape"] == (1,)
+dist.destroy_process_group()
+bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "gpras_tpu"))
+assert not bad, bad
+print("PARALLEL_OK")
+"""
+
+
+def test_parallel_layer_and_its_test_helpers_import_no_jax():
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", PARALLEL_SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert "PARALLEL_OK" in proc.stdout
 
 
 def test_chip_smoke_imports_neither_jax_nor_the_jax_package():

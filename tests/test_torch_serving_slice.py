@@ -155,8 +155,9 @@ def test_port_refuses_what_it_does_not_serve(artifacts):
     out, _ = artifacts
     model = TGPRAS.from_file(out / "gp_cg.npz", device="cpu")
     # its engine, "cg", now trains (tests/test_torch_cg_train.py); a
-    # mesh-distributed fit is still refused
-    with pytest.raises(NotImplementedError, match="A6"):
+    # mesh-distributed fit runs over a process group
+    # (tests/test_torch_parallel_model.py) and, without one, says how to start it
+    with pytest.raises(RuntimeError, match="torchrun"):
         model.fit(np.zeros((4, D)), np.zeros((4, P)), mesh="auto")
     # sgpr and svgp are ported (tests/test_torch_sgpr.py, tests/test_torch_svgp.py);
     # a sparse backend refuses a mesh as the reference does
