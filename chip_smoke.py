@@ -10,9 +10,10 @@ serve at N = 49,152; the archive-scale protocol at N = 2^20), the accuracy
 north stars, the metric suite, the pipeline's run path
 (``python -m gpras_tpu_torch run`` with the exact backend at N = 17,920 and
 16,384 cells), the run-generation tooling (``select-events`` on a
-10,000-event SST catalog, ``make-runs`` for its 49 storms) and the
-distributed layer over NCCL at world size 1, through the entry
-points a user calls, and checks every CUDA kernel on those paths:
+10,000-event SST catalog, ``make-runs`` for its 49 storms), the
+distributed layer over NCCL at world size 1 and the in-place factorization
+and lean exact engine (N = 49,152; the lean rung at 16,384), through the
+entry points a user calls, and checks every CUDA kernel on those paths:
 
 0. device: the card's name and power limit, torch and CUDA versions; TF32 off
 1. build: nvcc compiles gpras_tpu_torch/csrc into build/gpras_tpu_torch/
@@ -42,7 +43,8 @@ points a user calls, and checks every CUDA kernel on those paths:
    exact posterior (Cholesky of the full 49,152^2 Gram) on the card
 5. training: GPRAS(...).fit on the same data, warm-started from a 2,048-point
    rung, then Adam steps on the full-N Hutchinson loss per mode (B1 forward,
-   cuSOLVER Cholesky, B5 backward); the launch counters show B1 and B5 ran
+   super_cholesky in place, B5 backward); the launch counters show B1 and B5
+   ran
 6. training checks: mode 0's full-N loss at its certified start against the
    float64 dense NLML minus log prior, and B5 at that point against the
    float64 plain contraction with the same probes; a breakdown of one full-N
@@ -118,6 +120,14 @@ points a user calls, and checks every CUDA kernel on those paths:
    the 1-D one at N = 8,192; sharded prediction, PCA and one SVGP step
    against their one-card paths; B2 is also checked and timed at the
    distributed CG shape in phase 2
+20. the in-place factorization and the lean exact engine (ops/block_cholesky,
+   gp/exact_lean) at mode 0's phase-5 start: super_cholesky on B1's
+   49,152^2 Gram in place (same storage, peak growth <= 1 GB) against
+   cholesky_ex, both timed; one Hutchinson value and gradient with
+   chol="xla" and chol="super" (B1, B5); GPRAS "auto" at N = 16,384 taking
+   the lean rung, against the dense engine and float64; the lean engine's
+   super route at N = 49,152 against the float64 loss and its central
+   difference along a seeded direction; each with its time and peak memory
 
 Serving uses fixed hyperparameters at values where the serving solver
 converges (see training_set); the training phase fits its own. Artifacts go
@@ -159,6 +169,9 @@ KERNEL_TOL = 1e-4  # |kernel - plain_f64| <= 1e-4 * max|plain_f64| (see phase 2)
 MEAN_TOL = 1e-3    # served mean vs dense f64: 1e-3 * max|mean|
 VAR_TOL = 1e-2     # served variance vs dense f64: relative
 LOSS_TOL = 1e-5    # full-N float32 training loss vs dense f64: relative (see phase 6)
+N_LEAN = 16_384    # phase 20 (c): the top of "auto"'s lean rung
+IN_PLACE_GROWTH_GB = 1.0  # phase 20 (a): super_cholesky's peak above its input
+FD_STEP = 1e-4     # phase 20 (d): the central difference's step in log-parameter space
 # phase 11's limit at the cold fit's converged parameters (noise ~0.01, var /
 # noise ~100): there float32 does not hold LOSS_TOL. The engine's Gram
 # entries (r2 = a2 + b2 - 2ab in fp32, as the reference's) and its fp32
@@ -341,6 +354,13 @@ def kgrad_work(n: int, d: int = D, m: int = M) -> tuple[float, float]:
     Kbar_ij + Kbar_ji (two rank-m dots, 4m) on each. All of it fp32 on the
     CUDA cores: no kernel here puts the cotangent on the tensor cores."""
     return n * (n + 1) / 2 * (6 * d + 4 * m + 19), 4.0 * n * (d + 2 * m + 1)
+
+
+def flat_grads(g):
+    """A gradient dict as one float64 vector, its entries in sorted order."""
+    import torch
+
+    return torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
 
 
 def flat(out):
@@ -1132,10 +1152,15 @@ def phase_training_check(model, start):
 
 def phase_step_breakdown(model):
     """One full-N training step of mode 0 at its fitted parameters, piece by
-    piece (CUDA events), and whole through the model's loss (host clock)."""
+    piece (CUDA events), and whole through the model's loss (host clock).
+    The pieces are the path's: B1, super_cholesky in place with
+    default_chol_config's knobs (timed with B1, less B1's time), the blocked
+    solves of alpha and W = K^-1 Z, B5."""
     import torch
 
     from gpras_tpu_torch.fit.optimizers import value_and_grad
+    from gpras_tpu_torch.gp import exact_stochastic
+    from gpras_tpu_torch.ops import block_cholesky as bc
     from gpras_tpu_torch.ops import fused_gram
     from gpras_tpu_torch.ops import linalg
 
@@ -1143,18 +1168,23 @@ def phase_step_breakdown(model):
     y, z = model.y[:, 0], model._probes
     noise = torch.exp(p["log_noise_variance"]) + \
         linalg.default_jitter(torch.float32) * torch.exp(p["log_variance"])
+    cfg = exact_stochastic.default_chol_config(N)
+    w, strip = bc.fit_block(N, cfg["chol_w"]), cfg["chol_strip"]
+
+    def factor():
+        return bc.super_cholesky(fused_gram.gram("Matern52", p, model.x, noise=noise), w,
+                                 strip, zero_upper=False)
+
     parts = {"B1 gram": cuda_ms(lambda: fused_gram.gram("Matern52", p, model.x, noise=noise))}
-    k = fused_gram.gram("Matern52", p, model.x, noise=noise)
-    parts["Cholesky (cholesky_ex)"] = cuda_ms(lambda: torch.linalg.cholesky_ex(k))
-    l, _ = torch.linalg.cholesky_ex(k)
-    del k
-    parts["solve alpha"] = cuda_ms(lambda: torch.cholesky_solve(y[:, None], l))
-    parts["solve W = K^-1 Z"] = cuda_ms(lambda: torch.cholesky_solve(z, l))
-    alpha = torch.cholesky_solve(y[:, None], l)[:, 0]
-    w = torch.cholesky_solve(z, l).contiguous()
+    parts["super_cholesky (in place)"] = cuda_ms(factor) - parts["B1 gram"]
+    l = factor()
+    parts["solve alpha (blocked)"] = cuda_ms(lambda: bc.blocked_cho_solve(l, y[:, None], 512))
+    parts["solve W = K^-1 Z (blocked)"] = cuda_ms(lambda: bc.blocked_cho_solve(l, z, 512))
+    alpha = bc.blocked_cho_solve(l, y[:, None], 512)[:, 0]
+    w_sol = bc.blocked_cho_solve(l, z, 512).contiguous()
     del l
     parts["B5 kgrad_sym"] = cuda_ms(
-        lambda: fused_gram.kgrad_sym("Matern52", p, model.x, w, z, alpha, 1.0, 1.0 / M))
+        lambda: fused_gram.kgrad_sym("Matern52", p, model.x, w_sol, z, alpha, 1.0, 1.0 / M))
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     steps = []
@@ -1566,7 +1596,8 @@ def phase_cold_hutchinson(x, y):
     launches = read_counters()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     evals = info["evals"]
-    loss = exact_stochastic.make_hutchinson_training_loss("Matern52", fused_gram=True)
+    loss = exact_stochastic.make_hutchinson_training_loss(
+        "Matern52", **exact_stochastic.default_chol_config(N))
     z = exact_stochastic.rademacher_probes(N, 16, device=DEVICE)
     params0 = exact.init_params("Matern52", x_t, noise_variance=0.1)
     with torch.no_grad():
@@ -2767,9 +2798,6 @@ def phase_distributed(report, out: Path):
                 f"{pieces[name]['peak_gb']:.3f} GB, launches {got}")
             return result
 
-        def flat_grads(g):
-            return torch.cat([g[k].double().reshape(-1) for k in sorted(g)])
-
         # (a) the Hutchinson engine through GPRAS.fit(mesh="auto")
         x_np, y_np, params_np = training_set()
         model = GPRAS("Matern52", model_type="exact", device=DEVICE)
@@ -2785,7 +2813,8 @@ def phase_distributed(report, out: Path):
         x, y0 = model.x, model.y[:, 0].contiguous()
         p0 = exact_gp.init_params("Matern52", x)
         z = exact_stochastic.rademacher_probes(x.shape[0], M, device=DEVICE)
-        one = exact_stochastic.make_hutchinson_training_loss("Matern52", fused_gram=True)
+        one = exact_stochastic.make_hutchinson_training_loss(
+            "Matern52", **exact_stochastic.default_chol_config(x.shape[0]))
         loss_one, g_one = value_and_grad(lambda p: one(p, x, y0, z), p0)
         mesh1 = make_mesh()
         dnlml = pexact.make_dist_nlml_stochastic(mesh1, "Matern52",
@@ -2933,6 +2962,252 @@ def phase_distributed(report, out: Path):
             "cg": b, "layout_2d": c, "rest": d, "b2_at_dist_cg_shape": b2}
 
 
+def lower_err(l, l_ref, rows: int = 4096) -> float:
+    """max |tril(l) - tril(l_ref)| in row chunks (no (N, N) temporary)."""
+    err = 0.0
+    for r0 in range(0, l.shape[0], rows):
+        r1 = min(r0 + rows, l.shape[0])
+        d = (l[r0:r1, :r1] - l_ref[r0:r1, :r1]).tril_(r0)
+        err = max(err, float(d.abs().max()))
+    return err
+
+
+def inplace_ms(k, k0, fn, reps: int = 3) -> float:
+    """Median device time of ``fn(k)``, an in-place factorization, with
+    ``k`` restored from ``k0`` before each call (outside the events), after
+    one warm-up. The events span the host's reads inside the call."""
+    import torch
+
+    times = []
+    for _ in range(reps + 1):
+        k.copy_(k0)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn(k)
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times[1:])
+
+
+def timed_value_and_grad(loss, p, calls: int = 1):
+    """(loss, gradient, host s of the fastest call, peak device GB): each
+    call synchronised at both ends."""
+    import torch
+
+    from gpras_tpu_torch.fit.optimizers import value_and_grad
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    best = math.inf
+    for _ in range(calls):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        v, g = value_and_grad(loss, p)
+        torch.cuda.synchronize()
+        best = min(best, time.perf_counter() - t0)
+    return float(v), g, best, torch.cuda.max_memory_allocated() / 1e9
+
+
+def phase_in_place(x, y, start):
+    """20. The in-place factorization and the lean exact engine (gp/exact_lean,
+    ops/block_cholesky) at full width, Matern52, D = 8, on phase 5's data at
+    mode 0's certified start:
+
+    (a) super_cholesky on B1's 49,152^2 Gram with default_chol_config's
+        knobs (panels of 512, strips of 2,048): the result is the input's
+        storage and the peak grows by at most IN_PLACE_GROWTH_GB; its lower
+        triangle against cholesky_ex's within 1e-4 x max|L|, for both panel
+        solves; each timed (3 calls) beside cholesky_ex;
+    (b) one Hutchinson value and gradient at 49,152 with chol="xla" and with
+        chol="super" (the path's), the same probes: loss within LOSS_TOL,
+        gradient within 1e-3 x max|want|; time and peak of each;
+    (c) GPRAS("Matern52", model_type="exact").fit at N = 16,384 (4 modes,
+        "auto", warm-started as in phase 5, 3 Adam steps) must take the lean
+        rung; mode 0's start loss and gradient against the dense engine's
+        in fp32 (1e-5 relative; 1e-3 x max|want|) and against the float64
+        dense NLML (LOSS_TOL); a step's time and peak beside the dense
+        engine's;
+    (d) make_lean_training_loss(engine="super", chol_strip=4096) at
+        N = 49,152 (what exact_engine="lean" builds there): the loss against
+        the float64 dense one (LOSS_TOL), and the gradient along one seeded
+        unit direction v against the float64 central difference, h = 1e-4 in
+        log-parameter space: |<g, v> - D| <= 1e-3 (|<g, v>| + |g| / sqrt(P));
+        time and peak.
+
+    The launch counters are zeroed before and read after each piece's main
+    path (the factorization in (a), the super route in (b), the fit in (c),
+    the lean call in (d)); comparisons run outside."""
+    import torch
+
+    from gpras_tpu_torch.gp import exact as exact_gp
+    from gpras_tpu_torch.gp import exact_lean, exact_stochastic
+    from gpras_tpu_torch.ops import block_cholesky as bc
+    from gpras_tpu_torch.ops import fused_gram
+    from gpras_tpu_torch.ops import linalg
+
+    x_t = torch.as_tensor(x, device=DEVICE)
+    y0 = torch.as_tensor(y[:, 0], device=DEVICE).contiguous()
+    n = x_t.shape[0]
+    cfg = exact_stochastic.default_chol_config(n)
+    w, strip = bc.fit_block(n, cfg["chol_w"]), cfg["chol_strip"]
+    out, launches = {}, dict.fromkeys(counters(), 0)
+
+    def count(name):
+        got = read_counters()
+        out.setdefault(name, {})["launches"] = got
+        for k, v in got.items():
+            launches[k] += v
+
+    # (a) the factorization alone
+    noise = torch.exp(start["log_noise_variance"]) + \
+        linalg.default_jitter(torch.float32) * torch.exp(start["log_variance"])
+    torch.cuda.empty_cache()
+    k0 = fused_gram.gram("Matern52", start, x_t, noise=noise)
+    l_ref, info = torch.linalg.cholesky_ex(k0)
+    if int(info) != 0:
+        raise AssertionError(f"(a) cholesky_ex failed (info {int(info)})")
+    scale = float(l_ref.abs().max())
+    k = torch.empty_like(k0)
+    a = {"n": n, "w": w, "strip": strip, "l_scale": scale}
+    for inv_panel in (True, False):
+        k.copy_(k0)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ptr = k.data_ptr()
+        zero_counters()
+        l = bc.super_cholesky(k, w, strip, inv_panel=inv_panel, zero_upper=False)
+        torch.cuda.synchronize()
+        count("a_super_cholesky")
+        growth = (torch.cuda.max_memory_allocated() - base) / 1e9
+        err = lower_err(l, l_ref)
+        same = l.data_ptr() == ptr
+        del l  # k's storage: the later pieces' peaks must not hold it
+        tag = "inv_panel" if inv_panel else "solve_panel"
+        a[tag] = {"same_storage": same, "peak_growth_gb": growth, "max_abs_err": err}
+        if not (same and growth <= IN_PLACE_GROWTH_GB and err <= 1e-4 * scale):
+            raise AssertionError(f"(a) super_cholesky ({tag}): same storage {same}, peak "
+                                 f"growth {growth:.3f} GB, max_abs_err {err:.3e} (limit 1e-4 x "
+                                 f"{scale:.3e})")
+    del l_ref
+    torch.cuda.empty_cache()
+    for inv_panel in (True, False):
+        tag = "inv_panel" if inv_panel else "solve_panel"
+        a[tag]["ms"] = inplace_ms(k, k0, lambda kk: bc.super_cholesky(
+            kk, w, strip, inv_panel=inv_panel, zero_upper=False))
+    a["cholesky_ex_ms"] = cuda_ms(lambda: torch.linalg.cholesky_ex(k0))
+    del k, k0
+    torch.cuda.empty_cache()
+    log(f"[in-place] (a) super_cholesky at N={n}, w={w}, strip={strip}: same storage, peak "
+        f"growth {a['inv_panel']['peak_growth_gb']:.3f} / {a['solve_panel']['peak_growth_gb']:.3f}"
+        f" GB (limit {IN_PLACE_GROWTH_GB}); lower triangle vs cholesky_ex max_abs_err "
+        f"{a['inv_panel']['max_abs_err']:.3e} / {a['solve_panel']['max_abs_err']:.3e} (limit 1e-4 "
+        f"x {scale:.3e}); {a['inv_panel']['ms']:.2f} ms (tri_inverse panels) / "
+        f"{a['solve_panel']['ms']:.2f} ms (triangular-solve panels) vs cholesky_ex "
+        f"{a['cholesky_ex_ms']:.2f} ms")
+    out["a"] = a
+
+    # (b) a Hutchinson step on each factorization, the same probes
+    z = exact_stochastic.rademacher_probes(n, M, device=DEVICE)
+    b = {}
+    for chol in ("xla", "super"):
+        loss = exact_stochastic.make_hutchinson_training_loss("Matern52", chol=chol, chol_w=w,
+                                                              chol_strip=strip)
+        zero_counters()
+        v, g, s, peak = timed_value_and_grad(lambda p: loss(p, x_t, y0, z), start, calls=2)
+        if chol == "super":
+            count("b_hutchinson_super")
+        b[chol] = {"loss": v, "grad": flat_grads(g), "s": s, "peak_gb": peak}
+    want = b["xla"]["grad"]
+    b_err = float((b["super"]["grad"] - want).abs().max())
+    b_scale = float(want.abs().max())
+    b_rel = abs(b["super"]["loss"] - b["xla"]["loss"]) / abs(b["xla"]["loss"])
+    for chol in ("xla", "super"):
+        b[chol]["grad"] = b[chol]["grad"].tolist()
+    b.update({"loss_rel": b_rel, "grad_max_abs_err": b_err, "grad_scale": b_scale})
+    log(f"[in-place] (b) Hutchinson value and gradient at N={n}: xla {b['xla']['loss']:.6f} "
+        f"({b['xla']['s']:.3f} s, peak {b['xla']['peak_gb']:.3f} GB), super "
+        f"{b['super']['loss']:.6f} ({b['super']['s']:.3f} s, peak {b['super']['peak_gb']:.3f} "
+        f"GB); loss rel {b_rel:.3e} (limit {LOSS_TOL}), gradient max_abs_err {b_err:.3e} "
+        f"(limit 1e-3 x {b_scale:.3e})")
+    if not (b_rel <= LOSS_TOL and b_err <= 1e-3 * b_scale):
+        raise AssertionError("(b) the in-place Hutchinson route disagrees with cholesky_ex's")
+    out["b"] = b
+    del z
+    torch.cuda.empty_cache()
+
+    # (c) GPRAS's ladder takes the lean rung at 16,384 points
+    model, c_launches, c_fit, c_start = phase_training(
+        x[:N_LEAN], y[:N_LEAN], tag="in-place lean", need=(), forbid=tuple(counters()))
+    out.setdefault("c_gpras_lean", {})["launches"] = c_launches
+    engine = model._engine()
+    x16, y16 = model.x, model.y[:, 0].contiguous()
+    lean_v, lean_g, lean_s, lean_peak = timed_value_and_grad(
+        lambda p: model._loss_fn(p, y16), c_start, calls=2)
+    dense_v, dense_g, dense_s, dense_peak = timed_value_and_grad(
+        lambda p: exact_gp.training_loss("Matern52", p, x16, y16), c_start, calls=2)
+    del model
+    torch.cuda.empty_cache()
+    c_loss64 = dense_loss64(c_start, x16, y16)
+    c_err = float((flat_grads(lean_g) - flat_grads(dense_g)).abs().max())
+    c_scale = float(flat_grads(dense_g).abs().max())
+    c = {"engine": engine, "fit": c_fit, "loss_lean": lean_v, "loss_dense": dense_v,
+         "loss64": c_loss64, "rel_dense": abs(lean_v - dense_v) / abs(dense_v),
+         "rel_64": abs(lean_v - c_loss64) / abs(c_loss64), "grad_max_abs_err": c_err,
+         "grad_scale": c_scale, "lean_step_s": lean_s, "lean_peak_gb": lean_peak,
+         "dense_step_s": dense_s, "dense_peak_gb": dense_peak}
+    log(f"[in-place] (c) GPRAS 'auto' at N={N_LEAN}: engine {engine}; mode 0 start loss lean "
+        f"{lean_v:.6f}, dense {dense_v:.6f} (rel {c['rel_dense']:.3e}, limit 1e-5), float64 "
+        f"{c_loss64:.6f} (rel {c['rel_64']:.3e}, limit {LOSS_TOL}); gradient vs dense "
+        f"max_abs_err {c_err:.3e} (limit 1e-3 x {c_scale:.3e}); a step: lean {lean_s:.3f} s, "
+        f"peak {lean_peak:.3f} GB; dense {dense_s:.3f} s, peak {dense_peak:.3f} GB")
+    if not (engine == "lean" and c["rel_dense"] <= 1e-5 and c["rel_64"] <= LOSS_TOL
+            and c_err <= 1e-3 * c_scale):
+        raise AssertionError("(c) the lean rung is not taken or disagrees with the dense engine")
+    out["c"] = c
+    del x16, y16
+    torch.cuda.empty_cache()
+
+    # (d) the lean engine at full width, in place
+    lean = exact_lean.make_lean_training_loss("Matern52", engine="super", chol_strip=4096)
+    zero_counters()
+    d_v, d_g, d_s, d_peak = timed_value_and_grad(lambda p: lean(p, x_t, y0), start)
+    count("d_lean_super")
+    torch.cuda.empty_cache()
+    names = sorted(start)
+    g = flat_grads(d_g)
+    v = torch.as_tensor(np.random.default_rng(20).normal(size=g.numel()), dtype=torch.float64,
+                        device=g.device)
+    v /= v.norm()
+
+    def shifted(sign):
+        flat_p = torch.cat([start[k].double().reshape(-1) for k in names]) + sign * FD_STEP * v
+        parts = torch.split(flat_p, [start[k].numel() for k in names])
+        return {k: t.reshape(start[k].shape) for k, t in zip(names, parts)}
+
+    t0 = time.perf_counter()
+    d_loss64 = dense_loss64(start, x_t, y0)
+    fd = (dense_loss64(shifted(1.0), x_t, y0) - dense_loss64(shifted(-1.0), x_t, y0)) \
+        / (2 * FD_STEP)
+    fd_s = time.perf_counter() - t0
+    gv = float(g @ v)
+    d_limit = 1e-3 * (abs(gv) + float(g.norm()) / math.sqrt(g.numel()))
+    d = {"loss": d_v, "loss64": d_loss64, "rel_64": abs(d_v - d_loss64) / abs(d_loss64),
+         "g_dot_v": gv, "central_difference": fd, "dir_err": abs(gv - fd), "dir_limit": d_limit,
+         "params": g.numel(), "s": d_s, "peak_gb": d_peak, "float64_s": fd_s}
+    log(f"[in-place] (d) lean engine, super route, at N={n}: loss {d_v:.6f}, float64 "
+        f"{d_loss64:.6f} (rel {d['rel_64']:.3e}, limit {LOSS_TOL}); <g, v> {gv:.6f} vs central "
+        f"difference {fd:.6f} (|diff| {d['dir_err']:.3e}, limit {d_limit:.3e}, P = {g.numel()}); "
+        f"{d_s:.3f} s, peak {d_peak:.3f} GB; the three float64 losses {fd_s:.1f} s")
+    if not (d["rel_64"] <= LOSS_TOL and d["dir_err"] <= d_limit):
+        raise AssertionError("(d) the lean engine's loss or gradient disagrees with float64")
+    out["d"] = d
+    out["launches"] = launches
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -2979,6 +3254,8 @@ def main() -> int:
     tooling = phase_run_tooling(out)
     torch.cuda.empty_cache()
     distributed = phase_distributed(report, out)
+    torch.cuda.empty_cache()
+    in_place = phase_in_place(x, y, start)
 
     launches = {"kmv_dense": serving_launches["kmv_dense"],
                 "kmv_sym": serving_launches["kmv_sym"], "gram": train_launches["gram"],
@@ -3026,6 +3303,8 @@ def main() -> int:
         kernels[-1]["launches_pipeline"] = pipe["cold"]["launches"][name]
         # wrapper calls on phase 19's distributed paths (NCCL, world size 1)
         kernels[-1]["launches_distributed"] = distributed["launches"][name]
+        # wrapper calls on phase 20's in-place and lean paths
+        kernels[-1]["launches_in_place"] = in_place["launches"][name]
     log(json.dumps({"serving": {"cache_build_s": cache_s,
                                 "request_s": dict(zip(("17", "200"), latencies))}}))
     log(json.dumps({"training": training, "training_checks": checks, "step": step}))
@@ -3037,6 +3316,7 @@ def main() -> int:
     log(json.dumps({"pipeline": pipe}))
     log(json.dumps({"run_tooling": tooling}))
     log(json.dumps({"distributed": distributed}))
+    log(json.dumps({"in_place": in_place}))
     log(json.dumps({"kmv_sym_on_serving_path": {"calls": serving_launches["kmv_sym"],
                                                 "cuda_grids": sym_grids}}))
     log(json.dumps({"bound_fp32_only_ms_computed": fp32_bounds}))

@@ -46,7 +46,6 @@ import torch
 from gpras_tpu_torch.fit.optimizers import (_apply_floors, lbfgs_fit_chunked,
                                             lbfgs_fit_hostls)
 from gpras_tpu_torch.gp import exact, exact_cg, exact_stochastic
-from gpras_tpu_torch.gp.model import GPRAS
 
 Tensor = torch.Tensor
 
@@ -198,9 +197,8 @@ def fit_exact(
                                               precond_rank=precond_rank,
                                               residual_gate=residual_gate)
     else:
-        # B1 builds the Gram above GPRAS's threshold, as GPRAS's engine does
         loss = exact_stochastic.make_hutchinson_training_loss(
-            kernel, fused_gram=n > GPRAS.SUPER_THRESHOLD)
+            kernel, **exact_stochastic.default_chol_config(n))
 
     params, info = lbfgs_fit_chunked(
         lambda p: loss(p, x, y, draws), params0, max_iter=max_iter, chunk=chunk,

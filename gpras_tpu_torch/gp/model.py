@@ -22,10 +22,12 @@ drawn in order from one generator on ``device`` seeded with ``seed`` (the
 reference splits a JAX key per mode).
 
 Exact training follows the reference's engine ladder (``_loss_fn``): the dense
-custom-gradient NLML up to ``SUPER_THRESHOLD`` points (the reference's
-"lean" panel-scan backward between 8,192 and 16,384 points maps to it), the
-Hutchinson stochastic-trace engine (``gp/exact_stochastic.py``, kernels
-B1, B4 and B5) up to ``CG_THRESHOLD``, and above it the matrix-free CG
+custom-gradient NLML up to ``LEAN_THRESHOLD`` points, the lean engine's
+exact gradient in column panels (``gp/exact_lean.py``) up to
+``SUPER_THRESHOLD``, the Hutchinson stochastic-trace engine
+(``gp/exact_stochastic.py``, kernels B1, B4 and B5; the in-place
+factorization above ``SUPER_THRESHOLD``, ``default_chol_config``) up to
+``CG_THRESHOLD``, and above it the matrix-free CG
 engine (``gp/exact_cg.make_cg_training_loss``: mbcg over kernel B3, SLQ, the
 backward through B5), which holds no (N, N) buffer. ``fit(..., mesh=...)``
 runs the exact fit over the ranks of a ``torch.distributed`` mesh through
@@ -50,7 +52,7 @@ import torch
 
 from gpras_tpu_torch.fit import optimizers as fitters
 from gpras_tpu_torch.gp import exact as exact_gp
-from gpras_tpu_torch.gp import exact_cg, exact_stochastic, sgpr, svgp, warmstart
+from gpras_tpu_torch.gp import exact_cg, exact_lean, exact_stochastic, sgpr, svgp, warmstart
 from gpras_tpu_torch.gp.exact_cg import cg_posterior_alpha, cg_predict, pivoted_cholesky
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import kmeans as km
@@ -131,10 +133,11 @@ class GPRAS:
                  dtype: Any = torch.float32, exact_engine: str = "auto",
                  device: str | torch.device = "cuda") -> None:
         """``exact_engine`` picks the exact GP's training loss ("auto" scales
-        with N: dense, then Hutchinson above 16,384 points, then the
-        matrix-free CG engine above 55,000; "dense", "lean" (= dense here),
-        "hutchinson", "cg"). For serving, "cg" forces the matrix-free
-        posterior at any N. Ignored by SGPR and SVGP."""
+        with N: dense, then lean above 8,192 points, Hutchinson above 16,384,
+        the matrix-free CG engine above 55,000; "dense", "lean" (the exact
+        gradient in column panels, ``gp/exact_lean``), "hutchinson", "cg").
+        For serving, "cg" forces the matrix-free posterior at any N. Ignored
+        by SGPR and SVGP."""
         if kernel not in K.KERNEL_NAMES:
             raise ValueError(f"Unknown kernel {kernel!r}")
         if model_type not in ("sgpr", "svgp", "exact"):
@@ -155,6 +158,7 @@ class GPRAS:
         self.n_inducing: int = 0
         self._cache: tuple | None = None
         self._hutch_loss = None
+        self._lean_loss = None
         self._probes: Tensor | None = None
         self._cg_loss = None
         self._cg_draws: tuple[Tensor, Tensor] | None = None
@@ -221,6 +225,7 @@ class GPRAS:
         n = self.x.shape[0]
         # the engine closures and the probes are built for one N
         self._hutch_loss = None
+        self._lean_loss = None
         self._probes = None
         self._cg_loss = None
         self._cg_draws = None
@@ -462,8 +467,6 @@ class GPRAS:
                 engine = "lean"
             else:
                 engine = "dense"
-        if engine == "lean":
-            engine = "dense"  # the panel-scan backward is not ported (ROADMAP.md A1)
         return engine
 
     def _loss_fn(self, params: dict[str, Tensor], y_i: Tensor) -> Tensor:
@@ -490,11 +493,18 @@ class GPRAS:
             n = self.x.shape[0]
             if self._hutch_loss is None:
                 self._hutch_loss = exact_stochastic.make_hutchinson_training_loss(
-                    self.kernel_str, fused_gram=n > self.SUPER_THRESHOLD)
+                    self.kernel_str, **exact_stochastic.default_chol_config(n))
                 # fixed probes: a deterministic objective (the reference's PRNGKey(0))
                 self._probes = exact_stochastic.rademacher_probes(
                     n, 16, dtype=self.dtype, device=self.device)
             return self._hutch_loss(params, self.x, y_i, self._probes)
+        if engine == "lean":
+            if self._lean_loss is None:
+                n = self.x.shape[0]
+                self._lean_loss = exact_lean.make_lean_training_loss(
+                    self.kernel_str, engine="super" if n > self.SUPER_THRESHOLD else None,
+                    chol_strip=16384 if n <= 32768 else 4096)
+            return self._lean_loss(params, self.x, y_i)
         return exact_gp.training_loss(self.kernel_str, params, self.x, y_i)
 
     def _init_params(self, inducing_initializer: str) -> dict[str, Tensor]:

@@ -2,7 +2,7 @@
 
 Port of ``gpras_tpu/ops/linalg.py``: ``default_jitter``, ``add_jitter``,
 ``safe_cholesky`` (the x10 jitter escalation, differentiable), triangular and
-Cholesky solves, the log-determinant and ``inv_from_chol``.
+Cholesky solves, the log-determinant, ``inv_from_chol`` and ``tri_inverse``.
 """
 
 from __future__ import annotations
@@ -100,6 +100,25 @@ def safe_cholesky(k: Tensor, max_tries: int = 5, jitter: float | None = None,
     if jitter is None:
         jitter = default_jitter(k.dtype)
     return _SafeCholesky.apply(k, int(max_tries), float(jitter), bool(symmetrize))
+
+
+def tri_inverse(l: Tensor, *, newton_steps: int = 2) -> Tensor:
+    """Explicit inverse of the lower triangle of ``l``, Newton-refined.
+
+    A triangular solve against I, then ``newton_steps`` steps
+    X <- X + X (I - L X), each followed by ``tril`` so that round-off above
+    the diagonal does not leak into later products. Values above ``l``'s
+    diagonal are never read. ``super_cholesky`` multiplies each panel by
+    this inverse (one matmul) instead of solving it. The matmuls run in the
+    input's dtype; in float32 they follow ``torch.backends.cuda.matmul
+    .allow_tf32``, which the port's numeric paths keep off.
+    """
+    eye = _eye_like(l)
+    l = torch.tril(l)  # the refinement matmuls read the whole matrix
+    x = torch.linalg.solve_triangular(l, eye, upper=False)
+    for _ in range(newton_steps):
+        x = torch.tril(x + x @ (eye - l @ x))
+    return x
 
 
 def solve_triangular(l: Tensor, b: Tensor, *, lower: bool = True, trans: bool = False) -> Tensor:

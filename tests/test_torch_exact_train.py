@@ -156,7 +156,7 @@ def test_hutchinson_loss_and_gradient_match_jax(kernel):
     jloss = JS.make_hutchinson_training_loss(kernel, **JS.default_chol_config(n))
     wv, wg = jax.value_and_grad(lambda p: jloss(p, jnp.asarray(x), jnp.asarray(y[:, 0]),
                                                 jax.random.PRNGKey(0)))(_jax(params))
-    tloss = TS.make_hutchinson_training_loss(kernel, fused_gram=n > 16384)
+    tloss = TS.make_hutchinson_training_loss(kernel, **TS.default_chol_config(n))
     z = t64(_jax_probes(n))
     tv, tg = _value_and_grad_torch(lambda p: tloss(p, t64(x), t64(y[:, 0]), z), params)
     np.testing.assert_allclose(float(tv), float(wv), rtol=_rtol(kernel))
@@ -352,7 +352,7 @@ def test_fit_refuses_what_is_not_ported():
     model.x = torch.zeros((20_000, 1))
     assert model._engine() == "hutchinson"
     model.x = torch.zeros((10_000, 1))
-    assert model._engine() == "dense"  # the reference's "lean" range
+    assert model._engine() == "lean"
 
 
 def test_entry_points_default_to_the_card():

@@ -2,7 +2,8 @@
 
 A fresh interpreter imports gpras_tpu_torch, serves a tiny exact-GP
 checkpoint on the CPU through every module of the serving slice, fits tiny
-models through the dense and the Hutchinson engines, fits and serves tiny
+models through the dense, lean and Hutchinson engines (the lean and the
+Hutchinson ones also through the in-place factorization), fits and serves tiny
 SGPR and SVGP models, runs the cold exact fit on both of its engines, fits
 an ``HmsPreProcessor``, computes an event's metrics, imports
 ``gpras_tpu_torch.accuracy``, replays a parquet DB through
@@ -50,12 +51,23 @@ pred = PosteriorPredictor(out / "gp.npz", out / "hf.npz", out / "lf.npz", bucket
 f, v = pred.predict_field(field[:5])
 assert f.shape == v.shape == (5, 30) and np.isfinite(f).all() and (v >= 0).all()
 x, y = rng.normal(size=(64, 3)), rng.normal(size=(64, 2))
-for engine in ("dense", "hutchinson"):
+for engine, super_threshold in (("dense", 16384), ("lean", 16384), ("lean", 32),
+                                ("hutchinson", 16384)):
+    GPRAS.SUPER_THRESHOLD = super_threshold  # below N: lean's in-place factorization
     fitted = GPRAS("Matern52", model_type="exact", exact_engine=engine, dtype=torch.float64,
                    device="cpu")
     fitted.fit(x, y, optimization_method="adam", max_iter=3, learning_rate=0.05)
     assert all(torch.isfinite(v).all() for v in fitted.params.values())
     assert int(fitted.fit_info["iterations"][0]) == 3
+GPRAS.SUPER_THRESHOLD = 16384
+from gpras_tpu_torch.fit.optimizers import value_and_grad
+from gpras_tpu_torch.gp import exact_stochastic
+hutch = exact_stochastic.make_hutchinson_training_loss("Matern52", chol="super", chol_w=16,
+                                                       chol_strip=24)
+xt, yt = torch.as_tensor(x), torch.as_tensor(y[:, 0])
+z = exact_stochastic.rademacher_probes(64, 4, dtype=torch.float64)
+v, g = value_and_grad(lambda p: hutch(p, xt, yt, z), {k: t[0] for k, t in fitted.params.items()})
+assert torch.isfinite(v) and all(torch.isfinite(t).all() for t in g.values())
 sparse = GPRAS("Matern52", dtype=torch.float64, device="cpu")
 sparse.fit(x, y, n_inducing=8, max_iter=3)
 sparse.to_file(out / "sgpr.npz")

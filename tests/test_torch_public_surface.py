@@ -58,13 +58,6 @@ DEVIATIONS = {
         "+fit.optimizers.value_and_grad", "+utils.convert.params_from_numpy",
         "+utils.convert.params_to_numpy"],
     "kmv_cross picks B2 by the training-side N": [],
-    "lean runs the dense engine; exact_lean is not ported": [
-        "-gp.exact_lean.make_lean_nlml", "-gp.exact_lean.make_lean_training_loss"],
-    "not ported: TPU compile-time and 16 GB workarounds": [
-        "-ops.block_cholesky.blocked_cho_solve", "-ops.block_cholesky.blocked_cholesky",
-        "-ops.block_cholesky.blocked_solve_lower", "-ops.block_cholesky.blocked_solve_upper",
-        "-ops.block_cholesky.super_cholesky", "-ops.linalg.tri_inverse",
-        "-gp.exact_stochastic.default_chol_config"],
     "arguments that only steer the TPU are dropped": [
         "gp.exact_cg.kmv: -precision", "gp.exact_cg.kmv: -sub",
         "gp.exact_cg.kmv_cross: -precision", "gp.exact_cg.make_cg_nlml: -precision",
@@ -72,15 +65,15 @@ DEVIATIONS = {
         "gp.exact_cg.make_cg_step_chunked: +row_panel",
         "gp.exact_stochastic.make_hutchinson_nlml: -probes",
         "gp.exact_stochastic.make_hutchinson_nlml: -col_panel",
-        "gp.exact_stochastic.make_hutchinson_nlml: -chol",
-        "gp.exact_stochastic.make_hutchinson_nlml: -chol_w",
-        "gp.exact_stochastic.make_hutchinson_nlml: -chol_strip",
         "gp.exact_stochastic.make_hutchinson_nlml: -chol_precision",
-        "gp.exact_stochastic.make_hutchinson_nlml: +fused_gram",
         "gp.exact_stochastic.make_hutchinson_training_loss: -probes",
         "gp.exact_stochastic.make_hutchinson_training_loss: -col_panel",
-        "gp.exact_stochastic.make_hutchinson_training_loss: -chol_kwargs",
-        "gp.exact_stochastic.make_hutchinson_training_loss: +fused_gram",
+        "gp.exact_lean.make_lean_nlml: -chol_precision",
+        "ops.block_cholesky.blocked_cho_solve: -precision",
+        "ops.block_cholesky.blocked_cholesky: -precision",
+        "ops.block_cholesky.blocked_solve_lower: -precision",
+        "ops.block_cholesky.blocked_solve_upper: -precision",
+        "ops.block_cholesky.super_cholesky: -precision", "ops.linalg.tri_inverse: -precision",
         "parallel.pcholesky.dist_cholesky_local: -precision",
         "parallel.pcholesky2d.dist_cholesky_2d_local: -precision"],
     "the GPRAS_EOF_HOST_ELEMENTS switch is dropped": [],
