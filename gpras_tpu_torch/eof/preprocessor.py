@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from gpras_tpu_torch.eof.pca import pca_fit
+from gpras_tpu_torch.utils.profiling import count
 from gpras_tpu_torch.utils.serialization import load_artifact, save_artifact
 
 HydraulicParameterType = Literal["wse", "depth", "velocity"]
@@ -55,6 +56,7 @@ def _matmul(a: np.ndarray, b: np.ndarray, device: torch.device) -> np.ndarray:
     dtype = np.result_type(a, b)
     ta = torch.as_tensor(a.astype(dtype, copy=False), device=device)
     tb = torch.as_tensor(b.astype(dtype, copy=False), device=device)
+    count("host_reads", 3)  # two copies up from pageable memory, one read
     return (ta @ tb).cpu().numpy()
 
 

@@ -36,6 +36,8 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from gpras_tpu_torch.utils import profiling
+
 Tensor = torch.Tensor
 Params = dict[str, Tensor]
 LossFn = Callable[[Params], Tensor]
@@ -56,9 +58,17 @@ def mask_except(params: Params, keys: tuple[str, ...] = ()) -> Params:
     return {k: torch.tensor(float(k not in keys and k not in NON_TRAINABLE)) for k in params}
 
 
+def _read(t: Tensor) -> bool:
+    """``bool(t)``: a host read, counted."""
+    profiling.count("host_reads")
+    return bool(t)
+
+
 def _apply_mask(grads: Params, mask: Params | None) -> Params:
     if mask is None:
         mask = {k: torch.tensor(float(k not in NON_TRAINABLE)) for k in grads}
+    # each mask moves up from pageable memory, which waits for the device's queue
+    profiling.count("host_reads", len(grads))
     return {k: grads[k] * mask[k].to(dtype=grads[k].dtype, device=grads[k].device)
             for k in grads}
 
@@ -132,36 +142,41 @@ def adam_fit(
     state = ({k: torch.zeros_like(v) for k, v in p.items()},
              {k: torch.zeros_like(v) for k, v in p.items()}, 0)
     losses = torch.full((max_iter,), float("nan"), dtype=ref.dtype, device=ref.device)
+    profiling.count("host_reads")  # ``best`` moves up from pageable memory
     best = torch.tensor(float("inf"), dtype=ref.dtype, device=ref.device)
     good_p, good_state = p, state
     i = count = 0
     while i < max_iter and count <= patience:
         loss, grads = value_and_grad(loss_fn, p)
-        grads = _apply_mask(grads, mask)
-        updates, state_next = _adam_update(grads, state, learning_rate, b1, b2, eps)
-        p_next = _apply_floors({k: p[k] + updates[k] for k in p}, lower_bounds)
-        improved = bool((best - loss) / torch.abs(loss) > tol)
-        if improved:
-            best = loss
-        count = 0 if improved else count + 1
-        losses[i] = loss
-        if reject_nonfinite:
-            finite = bool(torch.isfinite(loss)) and all(
-                bool(torch.all(torch.isfinite(g))) for g in grads.values())
-            if finite:
-                good_p, good_state = p, state
-            else:
-                p_next, state_next = good_p, good_state
-        elif not bool(torch.isfinite(loss)):
-            # a non-finite loss can never improve again: stop now
-            count = patience + 1
+        with profiling.span("fit.adam"):
+            grads = _apply_mask(grads, mask)
+            updates, state_next = _adam_update(grads, state, learning_rate, b1, b2, eps)
+            p_next = _apply_floors({k: p[k] + updates[k] for k in p}, lower_bounds)
+            improved = _read((best - loss) / torch.abs(loss) > tol)
+            if improved:
+                best = loss
+            count = 0 if improved else count + 1
+            losses[i] = loss
+            if reject_nonfinite:
+                finite = _read(torch.isfinite(loss)) and all(
+                    _read(torch.all(torch.isfinite(g))) for g in grads.values())
+                if finite:
+                    good_p, good_state = p, state
+                else:
+                    p_next, state_next = good_p, good_state
+            elif not _read(torch.isfinite(loss)):
+                # a non-finite loss can never improve again: stop now
+                count = patience + 1
         p, state = p_next, state_next
         i += 1
     with torch.no_grad():
         final = loss_fn(p)
-        if reject_nonfinite and not bool(torch.isfinite(final)):
-            p = good_p
-            final = loss_fn(p)
+        if reject_nonfinite:
+            with profiling.span("fit.adam"):
+                rejected = not _read(torch.isfinite(final))
+            if rejected:
+                p = good_p
+                final = loss_fn(p)
     return p, {"iterations": i, "losses": losses, "loss": final.detach()}
 
 
@@ -214,6 +229,7 @@ def _merge_frozen(p: Params, frozen: Params, mask: Params | None) -> Params:
         return p
     out = {}
     for k in p:
+        profiling.count("host_reads")  # the mask moves up from pageable memory
         m = mask[k].to(dtype=p[k].dtype, device=p[k].device)
         out[k] = p[k] * m + frozen[k] * (1.0 - m)
     return out
@@ -224,6 +240,7 @@ def _host_value_and_grad(loss_fn: LossFn) -> Callable[[Params], tuple[float, Par
 
     def vag(p: Params) -> tuple[float, Params]:
         loss, grads = value_and_grad(loss_fn, p)
+        profiling.count("host_reads")
         return float(loss), grads
 
     return vag
@@ -297,6 +314,7 @@ def lbfgs_fit_chunked(
 
 
 def _flatten(params: Params, order: list[str]) -> np.ndarray:
+    profiling.count("host_reads", len(order))
     return np.concatenate(
         [params[k].detach().cpu().to(torch.float64).numpy().ravel() for k in order])
 
@@ -304,6 +322,7 @@ def _flatten(params: Params, order: list[str]) -> np.ndarray:
 def _unflatten(vec: np.ndarray, template: Params, order: list[str]) -> Params:
     out: Params = {}
     i = 0
+    profiling.count("host_reads", len(order))  # copies up from pageable memory
     for k in order:
         t = template[k]
         sz = t.numel()

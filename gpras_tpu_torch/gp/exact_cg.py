@@ -56,6 +56,7 @@ from gpras_tpu_torch.ops import fused_gram
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import linalg
 from gpras_tpu_torch.ops.block_cholesky import fit_block as _fit_panel
+from gpras_tpu_torch.utils import profiling
 
 Tensor = torch.Tensor
 
@@ -135,11 +136,19 @@ def mbcg(matvec: Callable[[Tensor], Tensor], b: Tensor, max_iters: int = 32,
     """Modified batched CG: solve A X = b per column, recording the Lanczos
     coefficients. b: (N, R). Returns (x, alphas, betas, rz0) with alphas and
     betas (max_iters, R) and rz0 = b^T P^{-1} b. Always runs ``max_iters``
-    iterations; converged columns freeze through the tolerance mask."""
+    iterations; converged columns freeze through the tolerance mask.
+
+    While a profiler records, counts ``cg.column_iters`` (R x iterations)
+    and ``cg.live_column_iters``, the column-iterations before a column
+    froze: a frozen column's alpha is exactly 0, so one reduction on the
+    device counts the nonzero alphas."""
     if pinv is None:
         pinv = _identity
     carry, rz0, stop2 = _mbcg_init(b, max_iters, tol, pinv)
     x, _, _, _, alphas, betas, _ = _mbcg_run(matvec, carry, 0, max_iters, stop2, pinv)
+    if profiling.tracing():
+        profiling.count("cg.column_iters", alphas.numel())
+        profiling.count("cg.live_column_iters", torch.count_nonzero(alphas))
     return x, alphas, betas, rz0
 
 
@@ -294,6 +303,7 @@ def precond_probes(n: int, rank: int, probes: int = 16, dtype: torch.dtype = tor
         gen = torch.Generator().manual_seed(0)
     u1 = torch.randn((rank, probes), generator=gen, dtype=torch.float64)
     u2 = torch.randn((n, probes), generator=gen, dtype=torch.float64)
+    profiling.count("host_reads", 2)  # the copies up wait for the device's queue
     return u1.to(dtype=dtype, device=device), u2.to(dtype=dtype, device=device)
 
 
@@ -457,6 +467,7 @@ def _post(vals: Tensor):
 
 def _fetch(posted) -> list:
     host, event = posted
+    profiling.count("host_reads")
     if event is not None:
         event.synchronize()
     return host.tolist()

@@ -44,6 +44,7 @@ from gpras_tpu_torch.ops import block_cholesky as bc
 from gpras_tpu_torch.ops import fused_gram
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import linalg
+from gpras_tpu_torch.utils.profiling import count, current, span
 
 Tensor = torch.Tensor
 
@@ -57,6 +58,7 @@ def rademacher_probes(n: int, probes: int = 16, dtype: torch.dtype = torch.float
     if gen is None:
         gen = torch.Generator().manual_seed(0)
     bits = torch.randint(0, 2, (n, probes), generator=gen)
+    count("host_reads")  # the copy up waits for the device's queue
     return (2 * bits - 1).to(dtype=dtype, device=device)
 
 
@@ -79,6 +81,7 @@ def _cholesky_ex(k: Tensor) -> Tensor:
     """The library factor; NaN where K does not factor, as the reference's
     ``jnp.linalg.cholesky`` returns."""
     l, info = torch.linalg.cholesky_ex(k)
+    count("host_reads")
     if int(info) != 0:
         l.fill_(float("nan"))
     return l
@@ -102,15 +105,18 @@ def _forward(kernel: str, factor: _Factor, params: dict[str, Tensor], x: Tensor,
     n = x.shape[0]
     noise = torch.exp(params["log_noise_variance"])
     jitter = linalg.default_jitter(x.dtype) * torch.exp(params["log_variance"])
-    if factor.fused and kernel in K.STATIONARY_KERNELS and x.dtype == torch.float32:
-        k = fused_gram.gram(kernel, params, x, noise=noise + jitter)
-    else:
-        k = fused_gram.gram_plain(kernel, params, x, noise=noise + jitter)
-    l = factor.chol(k)
+    with span("fit.gram"):
+        if factor.fused and kernel in K.STATIONARY_KERNELS and x.dtype == torch.float32:
+            k = fused_gram.gram(kernel, params, x, noise=noise + jitter)
+        else:
+            k = fused_gram.gram_plain(kernel, params, x, noise=noise + jitter)
+    with span("fit.factor"):
+        l = factor.chol(k)
     del k  # K and L are 9.66 GB each at N = 49,152 in float32 unless chol is in place
-    alpha = factor.solve(l, y[:, None])[:, 0]
-    quad = 0.5 * torch.dot(y, alpha)
-    out = quad + 0.5 * linalg.logdet_from_chol(l) + 0.5 * n * math.log(2.0 * math.pi)
+    with span("fit.solve"):
+        alpha = factor.solve(l, y[:, None])[:, 0]
+        quad = 0.5 * torch.dot(y, alpha)
+        out = quad + 0.5 * linalg.logdet_from_chol(l) + 0.5 * n * math.log(2.0 * math.pi)
     return out, l, alpha
 
 
@@ -121,12 +127,19 @@ class _HutchinsonNLML(torch.autograd.Function):
     @staticmethod
     def forward(ctx, kernel, factor, names, x, y, z, *values):
         ctx.kernel, ctx.factor, ctx.names = kernel, factor, names
+        # the backward runs on autograd's device thread: it joins this span there
+        ctx.span = current()
         out, l, alpha = _forward(kernel, factor, dict(zip(names, values)), x, y)
         ctx.save_for_backward(x, z, l, alpha, *values)
         return out
 
     @staticmethod
     def backward(ctx, g):
+        with span("fit.backward", parent=ctx.span):
+            return _HutchinsonNLML._backward(ctx, g)
+
+    @staticmethod
+    def _backward(ctx, g):
         x, z, l, alpha, *values = ctx.saved_tensors
         kernel = ctx.kernel
         params = dict(zip(ctx.names, values))

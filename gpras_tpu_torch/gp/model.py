@@ -57,7 +57,7 @@ from gpras_tpu_torch.gp.exact_cg import cg_posterior_alpha, cg_predict, pivoted_
 from gpras_tpu_torch.ops import kernels as K
 from gpras_tpu_torch.ops import kmeans as km
 from gpras_tpu_torch.ops import linalg
-from gpras_tpu_torch.utils.profiling import log_fit_losses
+from gpras_tpu_torch.utils.profiling import count, log_fit_losses, span
 from gpras_tpu_torch.utils.serialization import load_artifact, save_artifact
 
 Tensor = torch.Tensor
@@ -280,9 +280,10 @@ class GPRAS:
         fitted, infos = [], []
         for i in range(p_modes):
             y_i = self.y[:, i]
-            p_i, info = fitter(lambda p, y_i=y_i: self._loss_fn(p, y_i),
-                               {k: v[i].contiguous() for k, v in batched0.items()},
-                               **opt_kwargs)
+            with span("fit.mode"):
+                p_i, info = fitter(lambda p, y_i=y_i: self._loss_fn(p, y_i),
+                                   {k: v[i].contiguous() for k, v in batched0.items()},
+                                   **opt_kwargs)
             fitted.append(p_i)
             infos.append(info)
         self.params = {k: torch.stack([p[k] for p in fitted]) for k in fitted[0]}
@@ -472,7 +473,11 @@ class GPRAS:
     def _loss_fn(self, params: dict[str, Tensor], y_i: Tensor) -> Tensor:
         """Mode ``y_i``'s training loss at ``params``: -(ELBO + log prior)
         for SGPR and SVGP (its full-batch bound; training takes minibatches),
-        NLML minus log prior for the exact GP."""
+        NLML minus log prior for the exact GP. One ``fit.eval`` span."""
+        with span("fit.eval"):
+            return self._loss(params, y_i)
+
+    def _loss(self, params: dict[str, Tensor], y_i: Tensor) -> Tensor:
         if self.model_type == "sgpr":
             return sgpr.training_loss(self.kernel_str, params, self.x, y_i)
         if self.model_type == "svgp":
@@ -558,6 +563,7 @@ class GPRAS:
     def predict(self, x) -> tuple[np.ndarray, np.ndarray]:
         """Posterior predictive (mean, variance), each (n_samples, n_modes), as
         host numpy arrays; the variance includes the likelihood noise."""
+        count("host_reads")  # the copy up waits for the device's queue
         xq = torch.as_tensor(np.asarray(x), dtype=self.dtype, device=self.device)
         self._ensure_cache()
         means, variances = [], []
@@ -575,6 +581,7 @@ class GPRAS:
                                                       self.x, xq)
             means.append(mean)
             variances.append(var)
+        count("host_reads", 2)
         return (torch.stack(means, dim=1).cpu().numpy(),
                 torch.stack(variances, dim=1).cpu().numpy())
 

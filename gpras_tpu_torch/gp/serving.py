@@ -19,6 +19,7 @@ import torch
 
 from gpras_tpu_torch.eof.preprocessor import PreProcessor
 from gpras_tpu_torch.gp.model import GPRAS
+from gpras_tpu_torch.utils.profiling import count, span
 
 DEFAULT_BUCKETS = (256, 1024, 4096, 16384)
 
@@ -68,6 +69,8 @@ def make_field_decoder(
         fill = torch.where(torch.as_tensor(dry_mask, device=dev), elev, 0.0)
 
     def decode(mode_mean, mode_var=None):
+        if not isinstance(mode_mean, torch.Tensor):
+            count("host_reads")  # the copy up waits for the device's queue
         mode_mean = torch.as_tensor(mode_mean, dtype=dtype, device=dev)
         wet = (mode_mean * x_std_d + x_mean_d) @ eofs_d
         if inv_w is not None:
@@ -78,6 +81,8 @@ def make_field_decoder(
         full[:, wet_idx] = wet
         if mode_var is None:
             return full
+        if not isinstance(mode_var, torch.Tensor):
+            count("host_reads")
         var_wet = torch.as_tensor(mode_var, dtype=dtype, device=dev) @ var_transform
         var_full = torch.zeros((s, n_cells), dtype=dtype, device=dev)
         var_full[:, wet_idx] = var_wet
@@ -144,15 +149,24 @@ class PosteriorPredictor:
         preprocessor's ``reverse_transform``."""
         if self.lf_pre is None or self.hf_pre is None:
             raise RuntimeError("predict_field requires preprocessor artifacts")
-        x = self.lf_pre.transform(np.asarray(lf_field))
-        if device_decode:
-            mean, var, n = self._predict_modes_padded(x)
-            if self._decoder is None:
-                self._decoder = field_decoder_from_preprocessor(self.hf_pre)
-            f, fv = self._decoder(np.asarray(mean, np.float64), np.asarray(var, np.float64))
-            return f[:n].cpu().numpy(), fv[:n].cpu().numpy()
-        mean, var = self.predict_modes(x)
-        return self.hf_pre.reverse_transform(mean, var)
+        with span("serve.request"):
+            with span("serve.lf_transform"):
+                x = self.lf_pre.transform(np.asarray(lf_field))
+            if device_decode:
+                with span("serve.posterior"):
+                    mean, var, n = self._predict_modes_padded(x)
+                with span("serve.decode"):
+                    if self._decoder is None:
+                        self._decoder = field_decoder_from_preprocessor(self.hf_pre)
+                    f, fv = self._decoder(np.asarray(mean, np.float64),
+                                          np.asarray(var, np.float64))
+                with span("serve.copy_back"):
+                    count("host_reads", 2)
+                    return f[:n].cpu().numpy(), fv[:n].cpu().numpy()
+            with span("serve.posterior"):
+                mean, var = self.predict_modes(x)
+            with span("serve.decode"):
+                return self.hf_pre.reverse_transform(mean, var)
 
     def warmup(self, n_features: int | None = None) -> None:
         """Run every bucket once (and the field decoder, when the EOF

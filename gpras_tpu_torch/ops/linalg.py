@@ -9,6 +9,8 @@ from __future__ import annotations
 
 import torch
 
+from gpras_tpu_torch.utils.profiling import count
+
 Tensor = torch.Tensor
 
 #: Default relative diagonal jitter, scaled to the working dtype.
@@ -45,6 +47,12 @@ def _chol_attempt(k: Tensor, jcoef: Tensor, symmetrize: bool) -> tuple[Tensor, T
     return torch.linalg.cholesky_ex(k + jcoef[..., None, None] * _eye_like(k))
 
 
+def _any(t: Tensor) -> bool:
+    """``bool(torch.any(t))``: a host read, counted."""
+    count("host_reads")
+    return bool(torch.any(t))
+
+
 class _SafeCholesky(torch.autograd.Function):
     """Forward: the escalation loop. Backward: the Cholesky gradient of one
     attempt at the final jitter coefficient, held constant (the reference's
@@ -59,10 +67,10 @@ class _SafeCholesky(torch.autograd.Function):
         jcoef = jitter * scale
         l, info = _chol_attempt(k, jcoef, symmetrize)
         failed = info != 0
-        if bool(torch.any(failed)):  # the one host read of a call that factors at once
+        if _any(failed):  # the one host read of a call that factors at once
             j = torch.full_like(scale, jitter)
             tries = 0
-            while tries < max_tries and bool(torch.any(failed)):
+            while tries < max_tries and _any(failed):
                 j = torch.where(failed, torch.where(j > 0, j * 10.0, default_jitter(k.dtype)), j)
                 retry, retry_info = _chol_attempt(k, j * scale, symmetrize)
                 l = torch.where(failed[..., None, None], retry, l)

@@ -105,6 +105,8 @@ DEVIATIONS = {
             ("pcholesky2d", ("dist_cholesky_2d_local", "dist_solve_lower_2d_local",
                              "dist_solve_upper_2d_local"))) for f in fs],
     "the distributed factorization and solves run without autograd, on the trailing block": [],
+    "the port's spans and counters": [f"+utils.profiling.{n}" for n in (
+        "clear", "count", "current", "records", "span", "totals", "tracing")],
 }
 
 
