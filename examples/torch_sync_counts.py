@@ -6,7 +6,11 @@ that ``torch.cuda.set_sync_debug_mode("warn")`` reports, for
   in place above 16,384 points);
 - one SGPR request of ``--sgpr-fields`` fields;
 - one exact request of ``--exact-fields`` fields (the matrix-free posterior).
-Each phase runs once untimed first. One JSON line per phase: both counts,
+Each phase runs once untimed first, so a request finds the LF transform's
+constants already on the card; it then blocks 9 times, SGPR or exact: the
+transform's copy up of the field and its read, ``GPRAS.predict``'s copy up
+and two reads, the decoder's two copies up and the two copies back.
+One JSON line per phase: both counts,
 the loss evaluations (``fit.eval`` spans) and the warned call sites (the
 innermost frame of the package). On the CPU nothing synchronizes: the
 counter alone is given.

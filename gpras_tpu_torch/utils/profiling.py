@@ -24,6 +24,8 @@ waits for the device's queue); the same sites are counted on the CPU, where
 nothing waits, so a CPU run counts what a run on the card would.
 ``cg.column_iters`` and ``cg.live_column_iters``, the column-iterations of
 ``gp/exact_cg.mbcg`` run and run on columns not yet frozen.
+``eof.basis_uploads``, each time a ``PreProcessor`` puts its transform's
+constants on its device (once per fit or load).
 """
 
 from __future__ import annotations

@@ -113,23 +113,46 @@ def test_port_checkpoint_loads_in_jax(artifacts, tmp_path):
             np.testing.assert_allclose(got[k], want[k], rtol=1e-15)
 
 
-def test_port_preprocessor_matches_jax(artifacts):
+@pytest.mark.parametrize("request_kind", ["1_field", "64_fields", "nan_in_dry_cell",
+                                          "float32_field"])
+@pytest.mark.parametrize("weighted", [False, True], ids=["unweighted", "weighted"])
+@pytest.mark.parametrize("parameter", ["wse", "depth"])
+def test_port_preprocessor_matches_jax(tmp_path, parameter, weighted, request_kind):
     """The port's PreProcessor fitted on the same field gives the JAX basis,
-    and its transforms agree both ways."""
-    out, _ = artifacts
+    and its transforms agree both ways: the port's fit against the JAX
+    fit, and the JAX artifact loaded by the port to float64 round-off."""
     lf, _, elev = _fields()
-    mine = TPre(hydraulic_parameter="wse", device="cpu")
-    mine.fit(lf, elev, spatial_mode_count=D)
-    ref = JPre.from_file(out / "lf.npz")
+    lf[:, 60:66] = elev[60:66] - 1.0  # below ground in every event: always dry
+    lf[::2, 20:24] = elev[20:24] - 0.5  # below ground in half: a depth clamped to 0
+    weights = np.random.default_rng(5).uniform(0.5, 2.0, N_CELLS) if weighted else None
+    ref = JPre(hydraulic_parameter=parameter)
+    ref.fit(lf, elev, weights=weights, spatial_mode_count=D)
+    ref.to_file(tmp_path / "lf.npz")
+    mine = TPre(hydraulic_parameter=parameter, device="cpu")
+    mine.fit(lf, elev, weights=weights, spatial_mode_count=D)
     np.testing.assert_allclose(mine.eofs, ref.eofs, rtol=1e-9, atol=1e-12)
     np.testing.assert_allclose(mine.eigenvalues, ref.eigenvalues, rtol=1e-9, atol=1e-12)
     np.testing.assert_array_equal(mine.wetness_classes, ref.wetness_classes)
-    req = _requests()
-    np.testing.assert_allclose(mine.transform(req), ref.transform(req), rtol=1e-9, atol=1e-9)
+    loaded = TPre.from_file(tmp_path / "lf.npz", device="cpu")
+    req = _fields(seed=9, n_events=64)[0]
+    req[:, 60:66] = elev[60:66] - 1.0
+    req[::2, 20:24] = elev[20:24] - 0.5
+    if request_kind == "1_field":
+        req = req[:1]
+    elif request_kind == "nan_in_dry_cell":
+        assert ref.wetness_classes[62] == "AD"
+        req[::3, 62] = np.nan
+    elif request_kind == "float32_field":
+        req = req.astype(np.float32)  # against the float64 basis: numpy's promotion
+    want = ref.transform(req)
+    assert np.isfinite(want).all()
+    for got, tol in ((mine.transform(req), 1e-9), (loaded.transform(req), 1e-12)):
+        assert got.shape == want.shape and got.dtype == want.dtype == np.float64
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
     modes = ref.transform(req)
     var = np.abs(modes) * 0.1
     f_j, v_j = ref.reverse_transform(modes, var)
-    f_t, v_t = TPre.from_file(out / "lf.npz", device="cpu").reverse_transform(modes, var)
+    f_t, v_t = loaded.reverse_transform(modes, var)
     np.testing.assert_allclose(f_t, f_j, rtol=1e-12, atol=1e-12)
     np.testing.assert_allclose(v_t, v_j, rtol=1e-12, atol=1e-15)
 

@@ -242,10 +242,34 @@ def test_predict_field_opens_the_five_serve_spans_under_one_id(predictor):
         root = recs.index(req[0])
         assert req[0]["parent"] is None
         assert all(r["parent"] == root for r in req[1:])
-        # the transform's two copies up and its read, predict's copy up and
-        # two reads, the decoder's two copies up, the two copies back
-        assert [r["counts"].get("host_reads", 0) for r in req[1:]] == [3, 3, 2, 2]
-    assert profiling.totals() == {"host_reads": 20}
+        # the transform's copy up of the field and its read (its constants
+        # stay on the device from the untraced request), predict's copy up
+        # and two reads, the decoder's two copies up, the two copies back
+        assert [r["counts"].get("host_reads", 0) for r in req[1:]] == [2, 3, 2, 2]
+    assert profiling.totals() == {"host_reads": 18}
+
+
+def test_the_transform_uploads_its_constants_once_per_fit_or_load(tmp_path):
+    from gpras_tpu_torch import PreProcessor
+
+    f, elev = _fields(3, 40)
+    pre = PreProcessor(hydraulic_parameter="wse", device="cpu")
+    pre.fit(f, elev, spatial_mode_count=3)
+    pre.to_file(tmp_path / "pre.npz")
+    with _cpu_profile():
+        first = pre.transform(f[:5])
+        for k in (1, 7, 40):
+            pre.transform(f[:k])
+        assert profiling.totals()["eof.basis_uploads"] == 1
+        np.testing.assert_array_equal(pre.transform(f[:5]), first)
+        pre.fit(f[::2], elev, spatial_mode_count=3)  # a new basis
+        refit = pre.transform(f[:5])
+        assert profiling.totals()["eof.basis_uploads"] == 2
+        assert not np.allclose(refit, first)
+        loaded = PreProcessor.from_file(tmp_path / "pre.npz", device="cpu")
+        np.testing.assert_array_equal(loaded.transform(f[:5]), first)
+        loaded.transform(f[:9])
+        assert profiling.totals()["eof.basis_uploads"] == 3
 
 
 def test_fit_spans_group_each_mode():
