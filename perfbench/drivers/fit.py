@@ -181,3 +181,30 @@ def check(state, window, precision: str = "f64") -> tuple[dict[str, float], dict
     ref = follow_reference(state, modes, precision)
     start = {m: {k: v[m] for k, v in state["start"].items()} for m in modes}
     return compare.fit_numbers(prog, ref, start), {"modes": modes}
+
+
+def control_unit(state) -> dict:
+    """One full fit call, for ``control.py``."""
+    return fit_call(state)
+
+
+def control_readings(state, unit: dict, control: bool) -> list[tuple[str, dict, dict]]:
+    """The call's numbers against the float64 reference, with each mode's
+    leaves; with ``control``, the TF32 reference's and the fault of half of
+    the rows left out (the reference on the first N / 2 rows)."""
+    modes = list(range(state["cell"].config["hf_modes"]))
+    prog = program_readings(unit, modes, FOLLOWED)
+    state["model"] = state["observer"] = None
+    if state["cell"].device == "cuda":
+        torch.cuda.empty_cache()
+    start = {m: {k: v[m] for k, v in state["start"].items()} for m in modes}
+    ref = follow_reference(state, modes, "f64")
+    out = [("program", compare.fit_numbers(prog, ref, start),
+            {"leaves": compare.fit_detail(prog, ref, start)})]
+    if control:
+        ctrl = follow_reference(state, modes, "tf32")
+        out.append(("control_tf32", compare.fit_numbers(ctrl, ref, start),
+                    {"leaves": compare.fit_detail(ctrl, ref, start)}))
+        half = follow_reference(state, modes, "f64", rows=state["x"].shape[0] // 2)
+        out.append(("fault_half_rows", compare.fit_numbers(half, ref, start), {}))
+    return out

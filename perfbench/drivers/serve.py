@@ -179,3 +179,33 @@ def check(state, window, precision: str = "f64") -> tuple[dict[str, float], dict
     numbers = compare.serve_numbers(served, hf.wet.cpu().numpy(), hf.elevation.cpu().numpy(),
                                     hf.mean_field().cpu().numpy())
     return numbers, {"requests_compared": len(window["kept"]), "fields_compared": int(len(rows))}
+
+
+def control_unit(state) -> dict:
+    """One request, for ``control.py``."""
+    return run_window(state, 0.0)
+
+
+def control_readings(state, unit: dict, control: bool) -> list[tuple[str, dict, dict]]:
+    """The request's numbers against the float64 reference; with
+    ``control``, the TF32 reference's in the program's place."""
+    state["pred"] = None
+    if state["cell"].device == "cuda":
+        torch.cuda.empty_cache()
+    rows = np.unique(np.concatenate([np.arange(o, o + k) for o, k, _, _ in unit["kept"]]))
+    where = {r: i for i, r in enumerate(rows.tolist())}
+    field, fvar, hf = reference_fields(state, rows, "f64")
+    args = (hf.wet.cpu().numpy(), hf.elevation.cpu().numpy(), hf.mean_field().cpu().numpy())
+
+    def served(f_of):
+        return [(*f_of(off, k, f, v), field[[where[r] for r in range(off, off + k)]],
+                 fvar[[where[r] for r in range(off, off + k)]])
+                for off, k, f, v in unit["kept"]]
+
+    out = [("program", compare.serve_numbers(served(lambda o, k, f, v: (f, v)), *args), {})]
+    if control:
+        cf, cv, _ = reference_fields(state, rows, "tf32")
+        out.append(("control_tf32", compare.serve_numbers(
+            served(lambda o, k, f, v: (cf[[where[r] for r in range(o, o + k)]],
+                                       cv[[where[r] for r in range(o, o + k)]])), *args), {}))
+    return out

@@ -1,6 +1,8 @@
 """Mean host milliseconds a request spends in ``serve.lf_transform``:
-the LF ``PreProcessor.transform``: host numpy, two copies up, one
-matmul, a copy back."""
+the LF ``PreProcessor.transform``, on the card: one upload of the raw
+field, the wet cells gathered, centred, weighted, projected and
+standardised as device operations against constants already resident, one
+read back of the modes."""
 
 from perfbench.metrics import _spans
 

@@ -11,24 +11,14 @@ import pytest
 
 from perfbench.tests import tiny
 
-CELLS = ("exact49k-fit", "exact49k-serve", "sgpr49k-serve")
+BENCH = json.loads((tiny.REPO / "BENCHMARK.json").read_text())
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", [w["name"] for w in BENCH["workloads"]])
 def test_control_fails_and_program_passes(cell, tmp_path, monkeypatch):
     tiny.patch_program(monkeypatch)
     root = tiny.make_root(tmp_path)
-    monkeypatch.syspath_prepend(str(root))
-    import importlib.util
-    import sys
-
-    for name in [m for m in sys.modules if m == "perfbench" or m.startswith("perfbench.")]:
-        monkeypatch.delitem(sys.modules, name)
-    spec = importlib.util.spec_from_file_location("perfbench_control_tiny",
-                                                  root / "perfbench" / "control.py")
-    control = importlib.util.module_from_spec(spec)
-    monkeypatch.setitem(sys.modules, spec.name, control)
-    spec.loader.exec_module(control)
+    control = tiny.load_control(root, monkeypatch)
     from perfbench import compare
 
     bench = json.loads((root / "BENCHMARK.json").read_text())

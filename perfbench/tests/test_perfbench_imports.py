@@ -36,13 +36,16 @@ def test_no_jax_and_the_reference_stays_apart(path):
         assert names <= {"__future__", "math", "torch", "collections", "perfbench"}
 
 
+DRIVERS = sorted(p.stem for p in (PB / "drivers").glob("*.py") if p.stem != "__init__")
+
+
 def test_modules_loaded_by_the_reference_and_the_harness():
+    drivers = "".join(f"perfbench.drivers.{d}, " for d in DRIVERS)
     code = ("import sys, perfbench.reference.exact, perfbench.reference.sgpr, "
             "perfbench.reference.eof, perfbench.reference.adam\n"
             "assert not {m.split('.')[0] for m in sys.modules} & "
             "{'gpras_tpu_torch', 'gpras_tpu', 'jax'}, 'reference'\n"
-            "import perfbench.run, perfbench.drivers.fit, perfbench.drivers.serve, "
-            "perfbench.control, gpras_tpu_torch\n"
+            f"import perfbench.run, {drivers}perfbench.control, gpras_tpu_torch\n"
             "found = {m.split('.')[0] for m in sys.modules} & "
             "{'jax', 'jaxlib', 'flax', 'gpras_tpu'}\n"
             "assert not found, found\n")
