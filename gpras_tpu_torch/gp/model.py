@@ -185,7 +185,11 @@ class GPRAS:
         least twice the subsample), then starts the full-N fit from its
         optimum. In float32 the transfer is clamped and certified by one
         full-N forward loss per mode (``gp/warmstart.py``; the per-mode caps
-        and certifying losses land in ``self.warm_start_info``).
+        and certifying losses land in ``self.warm_start_info``, beside the
+        rung's mode-batched optimum before the clamp, ``rung_params``, and
+        its ``fit_info`` ``losses`` and ``iterations``, ``rung_losses``).
+        The rung runs inside a ``fit.warm_start`` span, the certification
+        inside ``fit.certify``.
 
         For the exact model in float32, "adam" and "two-stage" default to a
         noise-variance floor of 1e-4 and to non-finite step rejection, as in
@@ -238,16 +242,23 @@ class GPRAS:
             stride = -(-n // warm_start_subsample)
             warm = GPRAS(self.kernel_str, model_type="exact", dtype=self.dtype,
                          exact_engine=self.exact_engine, device=self.device)
-            warm.fit(self.x[::stride].contiguous(), self.y[::stride].contiguous(),
-                     optimization_method=optimization_method, **opt_kwargs)
+            with span("fit.warm_start"):
+                warm.fit(self.x[::stride].contiguous(), self.y[::stride].contiguous(),
+                         optimization_method=optimization_method, **opt_kwargs)
             initial_params = warm.params
+            # the rung's optimum before the clamp, and its loss history
+            self.warm_start_info = {
+                "rung_params": warm.params,
+                "rung_losses": {k: warm.fit_info[k] for k in ("losses", "iterations")}}
             if self.dtype == torch.float32:
                 # clamp + certify the rung's parameters against the full-N loss
                 fallback = {k: v.expand((p_modes,) + v.shape)
                             for k, v in exact_gp.init_params(self.kernel_str, self.x).items()}
-                initial_params, self.warm_start_info = warmstart.certify_transfer_batched(
-                    lambda p, i: self._loss_fn(p, self.y[:, i]), initial_params, fallback,
-                    ratio_cap=warm_ratio_cap)
+                with span("fit.certify"):
+                    initial_params, info = warmstart.certify_transfer_batched(
+                        lambda p, i: self._loss_fn(p, self.y[:, i]), initial_params, fallback,
+                        ratio_cap=warm_ratio_cap)
+                self.warm_start_info.update(info)
 
         if initial_params is not None:
             lead = next(iter(initial_params.values())).shape[0]

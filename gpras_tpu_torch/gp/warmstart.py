@@ -4,7 +4,9 @@ Port of ``gpras_tpu/gp/warmstart.py``. A fit on a subsample rung hands its
 hyperparameters to the full-N fit only after the conditioning-envelope
 clamp (kernel variance <= ``ratio_cap`` x noise variance), and the full-N
 fit certifies the clamped parameters with one forward loss evaluation per
-mode, halving the cap while the loss is not finite. The reason, measured by
+mode, halving the cap while the loss is not finite (each certifying forward
+counts ``warm.cert_evals``, each mode left at the standard init
+``warm.fallback_modes``). The reason, measured by
 the reference on the hard data recipe at N = 49,152: a subsample inflates
 the variance along a flat ridge of the likelihood, and the unclamped
 transfer does not factor in float32.
@@ -16,6 +18,8 @@ import math
 from typing import Any, Callable
 
 import torch
+
+from gpras_tpu_torch.utils.profiling import count
 
 Tensor = torch.Tensor
 
@@ -55,6 +59,7 @@ def certify_transfer(
     cert = float("nan")
     while cap >= min_cap:
         clamped = transfer_clamp(params, cap)
+        count("warm.cert_evals")
         with torch.no_grad():
             cert = float(loss_fn(clamped))
         if math.isfinite(cert):
@@ -90,6 +95,7 @@ def certify_transfer_batched(
             out_modes.append(clamped)
         else:
             fell_back.append(i)
+            count("warm.fallback_modes")
             out_modes.append({k: v[i] for k, v in fallback.items()})
     stacked = {k: torch.stack([m[k] for m in out_modes]) for k in params}
     return stacked, {"ratio_caps": caps, "cert_losses": certs, "fell_back_modes": fell_back}

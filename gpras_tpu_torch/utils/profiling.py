@@ -25,7 +25,11 @@ nothing waits, so a CPU run counts what a run on the card would.
 ``cg.column_iters`` and ``cg.live_column_iters``, the column-iterations of
 ``gp/exact_cg.mbcg`` run and run on columns not yet frozen.
 ``eof.basis_uploads``, each time a ``PreProcessor`` puts its transform's
-constants on its device (once per fit or load).
+constants on its device (once per fit or load). ``warm.cert_evals``, each
+full-N forward that certifies a warm-start transfer (``gp/warmstart.py``),
+and ``warm.fallback_modes``, each mode whose transfer stayed infeasible and
+took the standard init; ``GPRAS.fit`` opens ``fit.warm_start`` around the
+rung and ``fit.certify`` around the certification.
 """
 
 from __future__ import annotations
