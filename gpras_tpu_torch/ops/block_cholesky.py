@@ -11,7 +11,11 @@ as its strip. The solves walk the factor in b-row panels.
 The reference's loop bodies mask full-width updates so that XLA compiles one
 static shape (~3x the operations); here every update is a slice: the
 trailing update of a strip of columns covers its rows at and below the
-strip's first row only, applied by ``addmm_`` on the view. No function reads
+strip's first row only, applied by ``addmm_`` on the view. A strip wider
+than ``SPLIT`` columns is cut to whole panels up to ``SPLIT`` (one panel
+where a panel is wider), so little of each strip's diagonal square above
+the diagonal is computed: at N = 17,920 (panels of 1,792, asked for strips
+of 16,384) the products do 0.99 N^3 / 3 instead of 1.71. No function reads
 the factor above its diagonal, so a factor with stale values there (K's, as
 ``super_cholesky(..., zero_upper=False)`` leaves them) is a valid input to
 each. Everything runs in the input's dtype with plain matmuls (no TF32
@@ -34,6 +38,14 @@ from gpras_tpu_torch.ops import linalg
 
 Tensor = torch.Tensor
 
+#: the widest strip of the trailing update: a wider ``strip`` is cut to the
+#: largest multiple of the panel width up to this (the panel width if
+#: wider), since each strip computes its whole diagonal square and no reader
+#: uses the part above the diagonal. 2,048 is the widest strip the reference
+#: itself runs (``default_chol_config`` above 32,768 points), and a
+#: (rows, w) x (w, 2,048) product still fills the card.
+SPLIT = 2048
+
 
 def _chol_block(a: Tensor) -> Tensor:
     """Lower factor of a diagonal block from its lower triangle: the block
@@ -49,8 +61,12 @@ def _factor_(k: Tensor, w: int, strip: int, inv_panel: bool,
     by panel of width ``w``: ``diag`` factors the diagonal block, the panel
     below it is solved (by ``tri_inverse`` and a matmul when ``inv_panel``,
     else by a triangular solve), and the trailing matrix is updated in
-    column strips of ``strip``, each at and below its first row."""
+    column strips of ``strip``, each at and below its first row; a
+    ``strip`` wider than ``SPLIT`` is cut to the largest multiple of ``w``
+    up to ``SPLIT`` (``w`` if wider)."""
     n = k.shape[0]
+    if strip > SPLIT:
+        strip = max(w, SPLIT // w * w)
     for g0 in range(0, n, w):
         c0 = g0 + w
         l11 = diag(k[g0:c0, g0:c0])
@@ -93,8 +109,10 @@ def super_cholesky(k: Tensor, w: int = 4096, strip: int = 8192,
     is solved, L21 = A21 L11^-T, by ``tri_inverse`` and one matmul
     (``inv_panel``) or by a triangular solve; then A22 -= L21 L21^T in
     column strips of ``strip``, each strip's rows at and below its first row
-    only, by ``addmm_`` on the view of ``k``. The peak temporary is the
-    (N - g, w) panel. Only ``k``'s lower triangle is read.
+    only, by ``addmm_`` on the view of ``k``; a ``strip`` wider than
+    ``SPLIT`` is cut to whole panels up to ``SPLIT`` columns, so that little
+    of each strip's diagonal square above the diagonal is computed. The peak
+    temporary is the (N - g, w) panel. Only ``k``'s lower triangle is read.
 
     ``zero_upper=False`` leaves the stale values above the diagonal, as the
     reference does: every consumer of the factor here (the blocked solves,

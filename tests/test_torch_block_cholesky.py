@@ -7,12 +7,17 @@ Every case of tests/test_block_cholesky.py, each held against numpy as the
 reference test holds it and against the JAX function (1e-10 relative in
 float64); ``super_cholesky`` also runs in place (the result shares the
 input's storage) and reads nothing above the diagonal, with ``zero_upper``
-either way; ``default_chol_config`` returns the reference's dict."""
+either way; ``default_chol_config`` returns the reference's dict. Strips
+wider than ``SPLIT`` are cut to whole panels: held to numpy (and once to the
+JAX function) at shapes where that happens, and the ``addmm_`` products the
+walk issues are recorded on meta tensors at the cells' layouts, where
+nothing is computed."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from gpras_tpu.gp import exact_stochastic as JS
 from gpras_tpu.ops import block_cholesky as JB
@@ -140,6 +145,110 @@ def test_super_cholesky_in_place_ignores_stale_upper_triangle(zero_upper):
         rhs = rng.normal(size=96)
         np.testing.assert_allclose(TB.blocked_cho_solve(got, t64(rhs), 512).numpy(),
                                    np.linalg.solve(k, rhs), rtol=1e-9, atol=1e-9)
+
+
+def _low_rank_spd(n, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(n, 16))
+    return a @ a.T + n * np.eye(n)
+
+
+#: shapes at which the strip asked for is wider than SPLIT and is cut: the
+#: 17,920 layout scaled down (the strip asked for covers every trailing
+#: matrix), a strip of twice SPLIT, and a panel width that does not divide
+#: SPLIT (strips of 1,920)
+SPLIT_SHAPES = [(3072, 256, 16384), (4608, 256, 4096), (3072, 384, 16384)]
+
+
+@pytest.mark.parametrize("inv_panel", [True, False])
+@pytest.mark.parametrize("n,w,strip", SPLIT_SHAPES)
+def test_super_cholesky_split_square_matches_numpy(n, w, strip, inv_panel):
+    assert strip > TB.SPLIT and n - w > TB.SPLIT
+    k = _low_rank_spd(n, 9)
+    got = TB.super_cholesky(torch.tensor(k), w, strip, inv_panel)
+    np.testing.assert_allclose(got.numpy(), np.linalg.cholesky(k), rtol=1e-9, atol=1e-9)
+
+
+def test_super_cholesky_split_square_matches_xla():
+    n, w, strip = SPLIT_SHAPES[0]
+    k = _low_rank_spd(n, 10)
+    got = TB.super_cholesky(torch.tensor(k), w, strip)
+    _close(got, JB.super_cholesky(jnp.asarray(k), w, strip, "highest"))
+
+
+@pytest.mark.parametrize("zero_upper", [True, False])
+def test_split_square_ignores_stale_upper_triangle(zero_upper):
+    """The cut strips leave most of each diagonal square's upper triangle
+    stale; what is there, garbage included, must not reach the factor."""
+    n, w, strip = SPLIT_SHAPES[2]
+    k = _low_rank_spd(n, 11)
+    rng = np.random.default_rng(12)
+    kt = torch.tensor(k + np.triu(rng.normal(size=(n, n)) * 100.0, k=1))
+    got = TB.super_cholesky(kt, w, strip, zero_upper=zero_upper)
+    assert got is kt
+    np.testing.assert_allclose(np.tril(got.numpy()), np.linalg.cholesky(k), rtol=1e-9,
+                               atol=1e-9)
+    assert np.triu(got.numpy(), 1).any() != zero_upper
+    rhs = rng.normal(size=n)
+    np.testing.assert_allclose(TB.blocked_cho_solve(got, t64(rhs), 512).numpy(),
+                               np.linalg.solve(k, rhs), rtol=1e-9, atol=1e-9)
+
+
+class _AddmmShapes(TorchDispatchMode):
+    """Records each ``addmm_``'s (rows, inner, columns)."""
+
+    def __init__(self):
+        super().__init__()
+        self.calls = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.addmm_.default:
+            (m, kk), (_, c) = args[1].shape, args[2].shape
+            self.calls.append((m, kk, c))
+        return func(*args, **(kwargs or {}))
+
+
+def _walk_products(n, w, strip):
+    """The trailing-update products ``_factor_`` issues on an (n, n) meta
+    tensor (no arithmetic runs), the diagonal blocks left as they are."""
+    with _AddmmShapes() as rec:
+        TB._factor_(torch.empty(n, n, device="meta"), w, strip, True, lambda a: a)
+    return rec.calls
+
+
+def _flop(calls):
+    return sum(2 * m * kk * c for m, kk, c in calls)
+
+
+def _whole_strips(n, w, strip):
+    """The products of a walk that updates every strip whole, at and below
+    its first row."""
+    return [(n - cs, w, min(cs + strip, n) - cs)
+            for c0 in range(w, n, w) for cs in range(c0, n, strip)]
+
+
+@pytest.mark.parametrize("n,w,strip,calls,flop,whole", [
+    (17920, 1792, 16384, 45, 1_899_013_079_040, 3_280_113_500_160),  # pipe17k-fit's
+    (32768, 512, 16384, 528, 12_515_534_700_544, 18_648_747_999_232),  # the accuracy fit's
+])
+def test_split_walk_does_about_a_third_of_n_cubed(n, w, strip, calls, flop, whole):
+    """Where the strip is cut, the products do N^3 / 3 to within a few
+    percent (1.71 N^3 / 3 at 17,920 and 1.59 at 32,768 with strips updated whole)."""
+    got = _walk_products(n, w, strip)
+    assert len(got) == calls and _flop(got) == flop and all(kk == w for _, kk, _ in got)
+    assert abs(flop / (n ** 3 / 3) - 1) < 0.07
+    assert _flop(_whole_strips(n, w, strip)) == whole
+
+
+@pytest.mark.parametrize("n,w,strip", [(49152, 512, 2048), (4096, 512, 512),
+                                       (96, 48, 40), (3072, 1024, 2048)])
+def test_walk_at_most_split_wide_is_unchanged(n, w, strip):
+    """A strip of at most SPLIT columns is one product at and below its first
+    row, in the order the walk always issued them (exact49k-fit: w = 512,
+    strip 2,048)."""
+    want = _whole_strips(n, w, strip)
+    got = _walk_products(n, w, strip)
+    assert got == want and _flop(got) == _flop(want)
 
 
 def test_tri_inverse_matches_inv():
